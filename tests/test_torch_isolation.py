@@ -1,0 +1,119 @@
+"""The port stands alone: it imports neither jax nor the JAX package, obeys
+the device rule, and its CPU runs never touch a kernel."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import wicca_tpu_torch
+from wicca_tpu_torch import HaarCoder, QuantSpec, decode, encode
+from wicca_tpu_torch._device import resolve_device
+from wicca_tpu_torch.codec.interop import stream_from_arrays
+from wicca_tpu_torch.ops import dwt_cuda
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, importlib.util, json, pkgutil, sys
+import wicca_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(wicca_tpu_torch.__path__, "wicca_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "wicca_tpu"
+             or m.startswith("wicca_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for name in ("wicca_tpu_torch.ops.dwt_cuda", "wicca_tpu_torch.ops._build", "wicca_tpu_torch.codec.interop",
+                 "wicca_tpu_torch.coder", "wicca_tpu_torch.core.haar"):
+        assert name in res["modules"]
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "wicca_tpu_torch").rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_no_jax_import_lines(path):
+    for line in (ROOT / path).read_text().splitlines():
+        s = line.strip()
+        assert not s.startswith(("import jax", "from jax")), line
+        assert not (s.startswith(("from wicca_tpu.", "from wicca_tpu ", "import wicca_tpu"))
+                    and not s.startswith(("from wicca_tpu_torch", "import wicca_tpu_torch"))), line
+
+
+def test_numpy_input_without_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((3, 16, 16), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode(img, levels=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HaarCoder().get_small_copy(np.zeros((16, 16, 3), np.uint8), 2)
+    with pytest.raises(RuntimeError):
+        stream_from_arrays(np.zeros((1, 4, 4), np.float32), [])
+    with pytest.raises(RuntimeError):
+        resolve_device(img, "cuda")
+    assert resolve_device(img, "cpu") == torch.device("cpu")
+
+
+def test_tensor_runs_where_it_lies():
+    x = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    assert resolve_device(x) == torch.device("cpu")
+    assert resolve_device(x, "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device(x, "cuda")
+
+
+def test_cpu_runs_leave_launch_counters_at_zero():
+    dwt_cuda.reset_launches()
+    img = np.random.default_rng(0).integers(0, 256, (3, 40, 56), dtype=np.uint8)
+    stream = encode(img, levels=5, spec=QuantSpec(0.75), device="cpu")
+    decode(stream, emit_u8=True)
+    decode(stream)
+    HaarCoder().get_small_copy(np.moveaxis(img, 0, -1), 7, device="cpu")
+    assert dwt_cuda.LAUNCHES == {"icon": 0, "dwt_multilevel_quant": 0, "idwt_multilevel_dequant": 0}
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    ll = torch.zeros((1, 4, 4))
+    codes = [(torch.zeros((1, 8, 8), dtype=torch.int8),) * 3]
+    with pytest.raises(ValueError):
+        dwt_cuda.idwt_multilevel_dequant(ll.double(), codes, (1.0,))
+    with pytest.raises(ValueError):
+        dwt_cuda.idwt_multilevel_dequant(ll, [(torch.zeros((1, 8, 8), dtype=torch.int32),) * 3], (1.0,))
+    with pytest.raises(ValueError):
+        dwt_cuda.idwt_multilevel_dequant(ll, codes, (1.0, 1.0))
+    with pytest.raises(ValueError):
+        dwt_cuda.dwt_multilevel_quant(torch.zeros((1, 12, 12), dtype=torch.uint8), (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError):
+        dwt_cuda.dwt_multilevel_quant(torch.zeros((1, 8, 8), dtype=torch.int32), (1.0,))
+    assert wicca_tpu_torch.__all__
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_twins_on_the_card():
+    """On a card: each kernel equals its plain twin on the same CUDA tensors
+    (``python3 chip_smoke.py`` runs the full set of shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 64, 96), dtype=np.uint8)).cuda()
+    for depth in (1, 3, 5):
+        assert torch.equal(dwt_cuda.icon(x, depth), dwt_cuda.icon_plain(x, depth))
+    steps = ((0.75, 0.75, 1.125), (0.75, 0.75, 1.125), (0.75, 0.75, 1.125))
+    ll, dets = dwt_cuda.dwt_multilevel_quant(x, steps)
+    pll, pdets = dwt_cuda.dwt_multilevel_quant_plain(x, steps)
+    assert torch.equal(ll, pll) and all(torch.equal(a, b) for da, db in zip(dets, pdets) for a, b in zip(da, db))
+    for emit_u8 in (False, True):
+        got = dwt_cuda.idwt_multilevel_dequant(ll, dets, steps, emit_u8, 0.3)
+        assert torch.equal(got, dwt_cuda.idwt_multilevel_dequant_plain(ll, dets, steps, emit_u8, 0.3))

@@ -1,0 +1,93 @@
+"""The CUDA kernels of ``wicca_tpu_torch/csrc`` built by the host C++
+compiler (``host_emulation.h`` runs each launch thread by thread) and held
+against their plain PyTorch twins through the wrappers' own launch code.
+This checks the kernels' indexing and arithmetic without a card; the card
+itself runs the same comparison in ``chip_smoke.py``. Tolerance 0."""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from wicca_tpu_torch.core.pad import pad_to_multiple
+from wicca_tpu_torch.ops import _build
+from wicca_tpu_torch.ops import dwt_cuda as ops
+
+STEP_SETS = {
+    "int8": lambda k: tuple((1.0,) * 3 for _ in range(k)),
+    "int16": lambda k: tuple((0.75,) * 3 for _ in range(k)),
+    "hh1.5": lambda k: tuple((0.75 * 1.5**i, 0.75 * 1.5**i, 0.75 * 1.5**i * 1.5) for i in range(k)),
+    "mixed": lambda k: tuple((2.5, 2.5, 3.75) if i % 2 else (0.3, 0.3, 0.45) for i in range(k)),
+}
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    so = tmp_path_factory.mktemp("host_kernels") / "libwicca_haar_host.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++",
+                    "-I", str(_build.CSRC), str(_build.CSRC / "haar_kernels.cu"), "-o", str(so)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    _build._declare(lib)
+    return lib
+
+
+def _equal(got: torch.Tensor, want: torch.Tensor) -> None:
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_icon_kernel_matches_plain(host_lib, depth):
+    rng = np.random.default_rng(depth)
+    x = pad_to_multiple(torch.from_numpy(rng.integers(0, 256, (2, 3, 61, 83), dtype=np.uint8)), 1 << depth,
+                        mode="reflect101").contiguous()
+    _equal(ops._launch_icon(host_lib, x, depth, 0), ops.icon_plain(x, depth))
+    sat = torch.zeros((1, 256, 256), dtype=torch.uint8)
+    sat[..., 128:] = 255
+    _equal(ops._launch_icon(host_lib, sat, depth, 0), ops.icon_plain(sat, depth))
+
+
+@pytest.mark.parametrize("steps_name", STEP_SETS)
+@pytest.mark.parametrize("src", ["u8", "f32"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_dwt_and_idwt_kernels_match_plain(host_lib, k, src, steps_name):
+    rng = np.random.default_rng(k)
+    if src == "u8":
+        x = torch.from_numpy(rng.integers(0, 256, (2, 3, 37, 71), dtype=np.uint8))
+    else:
+        x = torch.from_numpy((rng.random((3, 45, 50)) * 300 - 20).astype(np.float32))
+    x = pad_to_multiple(x, 1 << k).contiguous()
+    steps = STEP_SETS[steps_name](k)
+    ll, dets = ops._launch_dwt(host_lib, x, steps, 0)
+    pll, pdets = ops.dwt_multilevel_quant_plain(x, steps)
+    _equal(ll, pll)
+    for bands, pbands in zip(dets, pdets):
+        for a, b in zip(bands, pbands):
+            _equal(a, b)
+    for emit_u8 in (False, True):
+        for off in (0.5, 0.3):
+            _equal(ops._launch_idwt(host_lib, ll, dets, steps, emit_u8, off, 0),
+                   ops.idwt_multilevel_dequant_plain(ll, dets, steps, emit_u8, off))
+
+
+def test_codec_pass_structure_matches_plain(host_lib):
+    """Depth 5 as the codec runs it: levels 1-3 from uint8, 4-5 from float32,
+    then the inverse passes, the finest emitting uint8."""
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (3, 128, 96), dtype=np.uint8))
+    s13 = tuple((0.75 * 1.5**i,) * 2 + (1.125 * 1.5**i,) for i in range(3))
+    s45 = tuple((0.75 * 1.5**i,) * 2 + (1.125 * 1.5**i,) for i in range(3, 5))
+    ll3, d13 = ops._launch_dwt(host_lib, x, s13, 0)
+    ll5, d45 = ops._launch_dwt(host_lib, ll3, s45, 0)
+    rec3 = ops._launch_idwt(host_lib, ll5, d45, s45, False, 0.5, 0)
+    out = ops._launch_idwt(host_lib, rec3, d13, s13, True, 0.5, 0)
+    pll3, pd13 = ops.dwt_multilevel_quant_plain(x, s13)
+    pll5, pd45 = ops.dwt_multilevel_quant_plain(pll3, s45)
+    prec3 = ops.idwt_multilevel_dequant_plain(pll5, pd45, s45)
+    _equal(out, ops.idwt_multilevel_dequant_plain(prec3, pd13, s13, emit_u8=True))

@@ -1,0 +1,367 @@
+"""The Haar main-path kernels and their plain PyTorch twins (counterpart of
+``wicca_tpu/ops/dwt_pallas.py``).
+
+Each wrapper, its plain twin, and the TPU kernel it replaces
+(``wicca_tpu/ops/dwt_pallas.py``):
+
+* K1 :func:`icon` / :func:`icon_plain` — ``icon_pallas``;
+* K2 :func:`dwt_multilevel_quant` / :func:`dwt_multilevel_quant_plain` —
+  ``dwt_multilevel_quant_pallas``;
+* K3 :func:`idwt_multilevel_dequant` / :func:`idwt_multilevel_dequant_plain`
+  — ``idwt_multilevel_dequant_pallas``.
+
+A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
+tensor it launches its kernel (``csrc/haar_kernels.cu``) or raises; nothing
+falls back. Each launch adds one to :data:`LAUNCHES`.
+
+The kernels work on semantic extents: for the pair-local Haar transform the
+JAX kernels' (512, 1024) tile padding never reaches a stored stream (the
+codec crops it away), so nothing here pads to tiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from wicca_tpu_torch.core.haar import _interleave
+from wicca_tpu_torch.ops import _build
+
+# launches per wrapper since the last reset_launches()
+LAUNCHES = {"icon": 0, "dwt_multilevel_quant": 0, "idwt_multilevel_dequant": 0}
+
+_EXACT_ICON_LEVELS = 6  # int32 sums of 4**6 uint8 pixels stay below 2**24
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _detail_dtype(step: float):
+    """int8 iff floor(max|band| / step) fits (image-normalized bands <= 127.5)."""
+    return (torch.int8, 127) if 127.5 / step < 128.0 else (torch.int16, 32767)
+
+
+def _band_steps3(steps: tuple) -> tuple:
+    """Normalize per-level step entries to (lh, hl, hh) triples: a scalar
+    entry applies to all three bands; a 3-tuple entry is used as-is."""
+    return tuple(
+        tuple(s) if isinstance(s, (tuple, list)) else (float(s),) * 3 for s in steps
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, held exactly in a Python float."""
+    return float(np.float32(v))
+
+
+@functools.lru_cache(maxsize=256)
+def _inv(step: float) -> float:
+    """The quantizer's multiplier: 1/step in float64, rounded once to float32."""
+    return _f32(1.0 / step)
+
+
+def _planes(shape) -> int:
+    return math.prod(shape[:-2])
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on the same CUDA device, got {t.device}")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: tensors lie on {tensors[0].device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+
+
+def contiguous_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels take it: contiguous, data 16-byte aligned.
+    Copies only when ``t`` is not so already."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: icon
+# ---------------------------------------------------------------------------
+
+
+def _check_icon(x: torch.Tensor, depth: int) -> None:
+    if depth < 1:
+        raise ValueError("depth must be >= 1")
+    if x.dtype != torch.uint8:
+        raise ValueError(f"icon wants uint8, got {x.dtype}")
+    if x.ndim < 2 or x.numel() == 0:
+        raise ValueError(f"icon wants a non-empty (..., H, W) tensor, got shape {tuple(x.shape)}")
+    unit = 1 << depth
+    if x.shape[-2] % unit or x.shape[-1] % unit:
+        raise ValueError(f"H, W must be divisible by {unit} (pad first)")
+
+
+def icon_plain(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """Depth-``depth`` uint8 icon of a padded planar ``(..., H, W)`` uint8
+    tensor: exact int32 block sums over up to 6 levels scaled once, then the
+    float32 chain in the reference association, then clip and truncate."""
+    _check_icon(x, depth)
+    m = min(depth, _EXACT_ICON_LEVELS)
+    s = x.to(torch.int32)
+    for _ in range(m):
+        s = s[..., 0::2, :] + s[..., 1::2, :]
+        s = s[..., 0::2] + s[..., 1::2]
+    v = s.to(torch.float32) * _f32(0.25**m)
+    for _ in range(depth - m):
+        rs = v[..., 0::2, :] + v[..., 1::2, :]
+        v = (rs[..., 0::2] + rs[..., 1::2]) * 0.25
+    return torch.clamp(v, 0, 255).to(torch.int32).to(torch.uint8)
+
+
+def _launch_icon(lib, x: torch.Tensor, depth: int, stream: int) -> torch.Tensor:
+    """K1's launches through ``lib`` on ``stream`` (``x`` already checked)."""
+    lead, planes = tuple(x.shape[:-2]), _planes(x.shape)
+    m = min(depth, _EXACT_ICON_LEVELS)
+    ho, wo = x.shape[-2] >> m, x.shape[-1] >> m
+    out = torch.empty(lead + (ho, wo), dtype=torch.uint8 if depth == m else torch.float32, device=x.device)
+    rc = lib.wicca_icon_u8(x.data_ptr(), out.data_ptr(), int(depth > m), planes, ho, wo, m, _f32(0.25**m),
+                           stream)
+    _build.check(rc, "icon")
+    LAUNCHES["icon"] += 1
+    remaining = depth - m
+    while remaining:
+        k = min(remaining, 3)
+        remaining -= k
+        ho, wo = ho >> k, wo >> k
+        nxt = torch.empty(lead + (ho, wo), dtype=torch.float32 if remaining else torch.uint8, device=x.device)
+        rc = lib.wicca_icon_f32(out.data_ptr(), nxt.data_ptr(), int(remaining > 0), planes, ho, wo, k, stream)
+        _build.check(rc, "icon")
+        LAUNCHES["icon"] += 1
+        out = nxt
+    return out
+
+
+def icon(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """K1: icon of a padded planar ``(..., H, W)`` uint8 tensor, H and W
+    divisible by ``2**depth``. One launch up to depth 6, then one launch per
+    further group of <= 3 float levels."""
+    _check_icon(x, depth)
+    if x.device.type == "cpu":
+        return icon_plain(x, depth)
+    _require_cuda("icon", x)
+    with torch.cuda.device(x.device):
+        return _launch_icon(_build.library(), x, depth, _stream(x))
+
+
+# ---------------------------------------------------------------------------
+# K2: fused forward levels + deadzone quantization
+# ---------------------------------------------------------------------------
+
+
+def _check_dwt(x: torch.Tensor, steps: tuple) -> int:
+    k = len(steps)
+    if not 1 <= k <= 3:
+        raise ValueError("1..3 levels per pass")
+    if x.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"dwt_multilevel_quant wants uint8 or float32, got {x.dtype}")
+    if x.ndim < 2 or x.numel() == 0:
+        raise ValueError(f"dwt_multilevel_quant wants a non-empty (..., H, W) tensor, got {tuple(x.shape)}")
+    unit = 1 << k
+    if x.shape[-2] % unit or x.shape[-1] % unit:
+        raise ValueError(f"H, W must be divisible by {unit}")
+    return k
+
+
+def _haar_raw(x: torch.Tensor):
+    """Unscaled (ll, lh, hl, hh) of one level: row pairs, then column pairs."""
+    rs = x[..., 0::2, :] + x[..., 1::2, :]
+    rd = x[..., 0::2, :] - x[..., 1::2, :]
+    rs_e, rs_o = rs[..., 0::2], rs[..., 1::2]
+    rd_e, rd_o = rd[..., 0::2], rd[..., 1::2]
+    return rs_e + rs_o, rs_e - rs_o, rd_e + rd_o, rd_e - rd_o
+
+
+def _quant_band(band: torch.Tensor, step: float, qmax: int, dt) -> torch.Tensor:
+    # clamp first: the float -> int cast then truncates toward zero
+    return torch.clamp(band * _inv(step), -qmax, qmax).to(dt)
+
+
+def dwt_multilevel_quant_plain(x: torch.Tensor, steps: tuple):
+    """``k = len(steps)`` <= 3 Haar levels with deadzone-quantized details.
+
+    From uint8 the levels run on exact int32 sums and a level-l band is
+    ``f32(raw) * 0.25**l``; from float32 every level scales by 0.25. A
+    level's codes are int8 when ``127.5 / min(step) < 128``, else int16.
+    Returns ``(ll_f32, [(lh, hl, hh), ...])`` fine to coarse."""
+    k = _check_dwt(x, steps)
+    steps = _band_steps3(steps)
+    from_u8 = x.dtype == torch.uint8
+    cur = x.to(torch.int32) if from_u8 else x
+    details = []
+    for lvl in range(1, k + 1):
+        ll, lh, hl, hh = _haar_raw(cur)
+        scale = _f32(0.25**lvl) if from_u8 else 0.25
+        dt, qmax = _detail_dtype(min(steps[lvl - 1]))
+        details.append(tuple(
+            _quant_band(b.to(torch.float32) * scale, s, qmax, dt)
+            for b, s in zip((lh, hl, hh), steps[lvl - 1])
+        ))
+        cur = ll if from_u8 else ll * 0.25
+    ll = cur.to(torch.float32) * _f32(0.25**k) if from_u8 else cur
+    return ll, details
+
+
+def _launch_dwt(lib, x: torch.Tensor, steps: tuple, stream: int):
+    """K2's launch through ``lib`` on ``stream`` (``x`` already checked;
+    ``steps`` in (lh, hl, hh) triples)."""
+    k = len(steps)
+    lead = tuple(x.shape[:-2])
+    planes = _planes(x.shape)
+    h, w = x.shape[-2], x.shape[-1]
+    dts = [_detail_dtype(min(s))[0] for s in steps]
+    dets = [
+        torch.empty(lead + (h >> lvl, w >> lvl), dtype=dts[lvl - 1], device=x.device)
+        for lvl in range(1, k + 1)
+        for _ in range(3)
+    ]
+    ll = torch.empty(lead + (h >> k, w >> k), dtype=torch.float32, device=x.device)
+    ptrs = (ctypes.c_void_p * 9)(*(d.data_ptr() for d in dets))
+    invs = (ctypes.c_float * 9)(*(_inv(s) for lvl in steps for s in lvl))
+    is16 = (ctypes.c_int * 3)(*(int(dt == torch.int16) for dt in dts))
+    rc = lib.wicca_dwt_quant(x.data_ptr(), int(x.dtype == torch.uint8), planes, h >> k, w >> k, k, ptrs,
+                             ll.data_ptr(), invs, is16, stream)
+    _build.check(rc, "dwt_multilevel_quant")
+    LAUNCHES["dwt_multilevel_quant"] += 1
+    return ll, [tuple(dets[i * 3 : i * 3 + 3]) for i in range(k)]
+
+
+def dwt_multilevel_quant(x: torch.Tensor, steps: tuple):
+    """K2: one fused pass of :func:`dwt_multilevel_quant_plain`; ``x`` is
+    ``(..., H, W)`` uint8 or float32 with H, W divisible by ``2**len(steps)``."""
+    _check_dwt(x, steps)
+    if x.device.type == "cpu":
+        return dwt_multilevel_quant_plain(x, steps)
+    _require_cuda("dwt_multilevel_quant", x)
+    with torch.cuda.device(x.device):
+        return _launch_dwt(_build.library(), x, _band_steps3(steps), _stream(x))
+
+
+# ---------------------------------------------------------------------------
+# K3: dequantization + fused inverse levels
+# ---------------------------------------------------------------------------
+
+
+def _check_idwt(ll: torch.Tensor, details, steps: tuple) -> int:
+    k = len(steps)
+    if not 1 <= k <= 3 or len(details) != k:
+        raise ValueError("1..3 levels per pass; details must match steps")
+    if ll.dtype != torch.float32:
+        raise ValueError(f"ll must be float32, got {ll.dtype}")
+    if ll.ndim < 2 or ll.numel() == 0:
+        raise ValueError(f"ll must be a non-empty (..., h, w) tensor, got {tuple(ll.shape)}")
+    ch, cw = ll.shape[-2], ll.shape[-1]
+    for lvl, bands in enumerate(details, start=1):
+        want = tuple(ll.shape[:-2]) + (ch << (k - lvl), cw << (k - lvl))
+        if len(bands) != 3:
+            raise ValueError("each level needs (lh, hl, hh)")
+        for b in bands:
+            if tuple(b.shape) != want:
+                raise ValueError(f"level {lvl} band has shape {tuple(b.shape)}, expected {want}")
+            if b.dtype not in (torch.int8, torch.int16) or b.dtype != bands[0].dtype:
+                raise ValueError(f"level {lvl} codes must all be int8 or all int16")
+    return k
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding, as a fused multiply-add.
+
+    The float64 product is exact; TwoSum gives the exact error of the
+    float64 sum, which then rounds to odd, so the final rounding to float32
+    is the correctly rounded result (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bump = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where(bump, torch.nextafter(s, toward), s).to(torch.float32)
+
+
+def _idwt_level_dequant(ll, codes, steps, offset: float) -> torch.Tensor:
+    """One dequantizing inverse level with the reference's roundings.
+
+    ``u = q + offset * sign q`` per band. As XLA compiles the JAX kernel,
+    the LH product joins ``ll +- lh`` and the HL product joins ``hl +- hh``
+    as fused multiply-adds (one rounding each); the HH product is rounded
+    on its own. The CUDA kernel does the same with ``__fmaf_rn``."""
+    qf = [q.to(torch.float32) for q in codes]
+    u_lh, u_hl, u_hh = (q + torch.sign(q) * _f32(offset) for q in qf)
+    s_lh, s_hl, s_hh = (torch.tensor(_f32(s), dtype=torch.float32, device=ll.device) for s in steps)
+    d_hh = u_hh * s_hh
+    rs_e = _fma_f32(u_lh, s_lh, ll) * 2.0
+    rs_o = _fma_f32(-u_lh, s_lh, ll) * 2.0
+    rd_e = _fma_f32(u_hl, s_hl, d_hh) * 2.0
+    rd_o = _fma_f32(u_hl, s_hl, -d_hh) * 2.0
+    e_r = _interleave((rs_e + rd_e) * 0.5, (rs_o + rd_o) * 0.5, axis=-1)
+    o_r = _interleave((rs_e - rd_e) * 0.5, (rs_o - rd_o) * 0.5, axis=-1)
+    return _interleave(e_r, o_r, axis=-2)
+
+
+def idwt_multilevel_dequant_plain(ll: torch.Tensor, details, steps: tuple, emit_u8: bool = False,
+                                  recon_offset: float = 0.5) -> torch.Tensor:
+    """Dequantize ``(q + offset * sign q) * f32(step)`` and invert
+    ``len(steps)`` <= 3 Haar levels, coarse to fine, with the reference's
+    roundings (:func:`_idwt_level_dequant`). ``details`` is ``[(lh, hl, hh),
+    ...]`` fine to coarse. float32 out, or uint8 (clip, truncate) with
+    ``emit_u8``."""
+    k = _check_idwt(ll, details, steps)
+    steps = _band_steps3(steps)
+    x = ll
+    for lvl in range(k, 0, -1):
+        x = _idwt_level_dequant(x, details[lvl - 1], steps[lvl - 1], recon_offset)
+    if emit_u8:
+        x = torch.clamp(x, 0, 255).to(torch.int32).to(torch.uint8)
+    return x
+
+
+def _launch_idwt(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, recon_offset: float,
+                 stream: int) -> torch.Tensor:
+    """K3's launch through ``lib`` on ``stream`` (inputs already checked;
+    ``steps`` in (lh, hl, hh) triples)."""
+    k = len(steps)
+    planes = _planes(ll.shape)
+    ch, cw = ll.shape[-2], ll.shape[-1]
+    out = torch.empty(tuple(ll.shape[:-2]) + (ch << k, cw << k),
+                      dtype=torch.uint8 if emit_u8 else torch.float32, device=ll.device)
+    ptrs = (ctypes.c_void_p * 9)(*(b.data_ptr() for bands in details for b in bands))
+    stp = (ctypes.c_float * 9)(*(_f32(s) for lvl in steps for s in lvl))
+    is16 = (ctypes.c_int * 3)(*(int(bands[0].dtype == torch.int16) for bands in details))
+    rc = lib.wicca_idwt_dequant(ll.data_ptr(), ptrs, is16, stp, _f32(recon_offset), k, planes, ch, cw,
+                                out.data_ptr(), int(emit_u8), stream)
+    _build.check(rc, "idwt_multilevel_dequant")
+    LAUNCHES["idwt_multilevel_dequant"] += 1
+    return out
+
+
+def idwt_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: bool = False,
+                            recon_offset: float = 0.5) -> torch.Tensor:
+    """K3: one fused pass of :func:`idwt_multilevel_dequant_plain`."""
+    _check_idwt(ll, details, steps)
+    if ll.device.type == "cpu":
+        return idwt_multilevel_dequant_plain(ll, details, steps, emit_u8, recon_offset)
+    _require_cuda("idwt_multilevel_dequant", ll, *(b for bands in details for b in bands))
+    with torch.cuda.device(ll.device):
+        lib = _build.library()
+        return _launch_idwt(lib, ll, details, _band_steps3(steps), emit_u8, recon_offset, _stream(ll))
