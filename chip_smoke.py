@@ -6,22 +6,39 @@
 Phases, each fatal on failure:
 
 1. the card (``nvidia-smi``), torch and CUDA versions, and the nvcc build
-   of the kernels from ``wicca_tpu_torch/csrc``;
+   of the kernels from ``wicca_tpu_torch/csrc`` (one nvcc per source, run
+   together);
 2. every kernel against its plain PyTorch twin on the same CUDA tensors
-   (``torch.equal``: tolerance 0) over small shapes that cover odd sizes,
+   (``torch.equal``: tolerance 0) over small shapes: for K1-K3 odd sizes,
    batched input, icon depths 1-8, k = 1-3 fused levels, uint8 and float32
    input, int8 and int16 codes, non-power-of-two steps, recon offsets and
-   uint8 emission;
-3. the main path at full size: a 3x8704x6144 uint8 frame (bench.py's
-   shape) through ``HaarCoder.get_small_copy`` (depth 5) and
-   ``encode(levels=5, QuantSpec(1.0))`` -> ``decode(emit_u8=True)``, held
-   equal to the plain path on the same tensors, PSNR > 30 dB, with every
-   kernel's launch counter read around the run;
-4. times at the main-path shapes: each kernel's device time
+   uint8 emission; for K4/K5 shapes past the (512, 1024) tile caps, int8,
+   int16 and float details; for K6/K7 shapes that cross tile seams in each
+   direction, both filters, k = 1-3, uint8 and int32 input, int32 and uint8
+   output, partial passes (orig_k > k);
+3. the paths at full size on a 3x8704x6144 uint8 frame (bench.py's shape),
+   each driven with the launch counters set to 0 just before and read just
+   after:
+   a. the Haar main path: ``HaarCoder.get_small_copy`` (depth 5) and
+      ``encode(levels=5, QuantSpec(1.0))`` -> ``decode(emit_u8=True)``, held
+      equal to the plain path on the same tensors, PSNR > 30 dB;
+   b. the lossless path: ``encode(levels=5, wavelet=legall5.3, color=rct)``
+      -> ``decode(emit_u8=True)`` equal to the frame bit for bit, the LL and
+      all 15 planes (tile-padded shapes) and ``decode_at_level(st, 2)``
+      equal to the plain path; the same with ``color='none'`` and with
+      ``haar_int``; then (after the counters are read) a ``decode_region``
+      window across tile seams equal to the frame's crop;
+   c. the single-level ops: ``ops.dwt_level_quant`` -> ``idwt_level_dequant``
+      on the frame as float32 at step 1.0, equal to the plain twins;
+4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
-   wrapper call, its plain twin and the yardstick library call (CUDA events,
-   median of ``--reps`` calls), the depth-5 roundtrip called alone and back
-   to back, then the ``kernels`` JSON line.
+   wrapper call, its plain twin and the yardstick library call where there
+   is one (CUDA events, median of ``--reps`` calls), the bytes each pass
+   must move and its bound; the Haar and lossless depth-5 roundtrips called
+   alone and back to back, with device-busy time and idle share; then the
+   ``kernels`` JSON line, whose times and bounds sum each kernel's passes
+   as often as phase 3 ran them (fatal unless their launches add up to
+   phase 3's count).
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a CUDA
 device the script exits non-zero before printing any result.
@@ -41,15 +58,22 @@ import numpy as np
 import torch
 
 H, W, LEVELS = 8704, 6144, 5
-SOURCE = "wicca_tpu_torch/csrc/haar_kernels.cu"
-REPLACES = {
-    "icon": "wicca_tpu/ops/dwt_pallas.py:171",
-    "dwt_multilevel_quant": "wicca_tpu/ops/dwt_pallas.py:405",
-    "idwt_multilevel_dequant": "wicca_tpu/ops/dwt_pallas.py:498",
+HAAR_SOURCE = "wicca_tpu_torch/csrc/haar_kernels.cu"
+LIFTING_SOURCE = "wicca_tpu_torch/csrc/lifting_kernels.cu"
+# kernel -> (TPU kernel it replaces, CUDA source, substring of its device symbol)
+KERNELS = {
+    "icon": ("wicca_tpu/ops/dwt_pallas.py:171", HAAR_SOURCE, "icon_"),
+    "dwt_multilevel_quant": ("wicca_tpu/ops/dwt_pallas.py:405", HAAR_SOURCE, "dwt_quant_kernel"),
+    "idwt_multilevel_dequant": ("wicca_tpu/ops/dwt_pallas.py:498", HAAR_SOURCE, "idwt_dequant_kernel"),
+    "dwt_level_quant": ("wicca_tpu/ops/dwt_pallas.py:230", HAAR_SOURCE, "haar_level_fwd_kernel"),
+    "idwt_level_dequant": ("wicca_tpu/ops/dwt_pallas.py:291", HAAR_SOURCE, "haar_level_inv_kernel"),
+    "dwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:140", LIFTING_SOURCE, "lift_fwd_level_kernel"),
+    "idwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:210", LIFTING_SOURCE, "lift_inv_level_kernel"),
 }
-F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, operations/s
-KERNEL_SYMBOL = {"icon": "icon_", "dwt_multilevel_quant": "dwt_quant_kernel",
-                 "idwt_multilevel_dequant": "idwt_dequant_kernel"}
+# H100 SXM rate outside the tensor cores, operations/s (float32; the integer
+# lifting is counted against it too: every pass here is bound by bytes by
+# two orders of magnitude either way)
+F32_PEAK = 67e12
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -101,10 +125,12 @@ def loop_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float | None:
+def device_ms(fn, reps: int, match: str | None = None, per_call: int | None = None) -> float | None:
     """Median device time (ms) per call of ``fn()`` of the CUDA kernels whose
-    name contains ``match`` (all kernels when None), from ``torch.profiler``;
-    None when the profiler records no such kernel."""
+    name contains ``match`` (all kernels when None), from ``torch.profiler``.
+    With ``per_call`` (the launches one call makes) the median runs over the
+    complete calls recorded, since the profiler now and then records fewer
+    launches than ran; None when it records no complete call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,10 +142,42 @@ def device_ms(fn, reps: int, match: str | None = None) -> float | None:
         torch.cuda.synchronize()
     us = [e.device_time for e in prof.events()
           if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
-    if len(us) < reps or len(us) % reps:
+    if per_call:
+        calls = len(us) // per_call
+        if calls < reps:
+            print(f"  note: the profiler recorded {len(us)} of {reps * per_call} launches of {match}")
+        if not calls:
+            return None
+        return statistics.median(sum(us[i * per_call : (i + 1) * per_call]) for i in range(calls)) / 1e3
+    if len(us) < reps:
         return None
+    if len(us) % reps:  # calls that differ in their kernels: the mean per call
+        return sum(us) / reps / 1e3
     per_call = len(us) // reps
     return statistics.median(sum(us[i * per_call : (i + 1) * per_call]) for i in range(reps)) / 1e3
+
+
+def reset_all_launches() -> None:
+    from wicca_tpu_torch.ops import dwt53_cuda, dwt_cuda
+
+    dwt_cuda.reset_launches()
+    dwt53_cuda.reset_launches()
+
+
+def launch_counts() -> dict:
+    from wicca_tpu_torch.ops import dwt53_cuda, dwt_cuda
+
+    return {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES}
+
+
+def read_launches(names, path: str) -> dict:
+    """The launch counts of ``names`` since the last reset; fails if one of
+    them never launched."""
+    counts = launch_counts()
+    launches = {name: counts[name] for name in names}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of {path} never launched: {launches}")
+    return launches
 
 
 def check_equal(what: str, got, want) -> None:
@@ -127,6 +185,17 @@ def check_equal(what: str, got, want) -> None:
         diff = (got.double() - want.double()).abs().max().item() if got.shape == want.shape else None
         raise AssertionError(f"{what}: kernel {got.dtype}{tuple(got.shape)} != plain "
                              f"{want.dtype}{tuple(want.shape)}, max |diff| {diff}")
+
+
+def check_pairs(pairs: dict) -> dict:
+    """Hold every ``(what, kernel result, plain result)`` of each kernel in
+    ``pairs`` equal; returns each kernel's largest |difference|, measured."""
+    max_abs_err = {}
+    for name, checks in pairs.items():
+        for what, got, want in checks:
+            check_equal(what, got, want)
+        max_abs_err[name] = max((got.double() - want.double()).abs().max().item() for _, got, want in checks)
+    return max_abs_err
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +245,55 @@ def phase_kernels_vs_plain(rng, dev) -> int:
                         want = ops.idwt_multilevel_dequant_plain(ll, dets, steps, emit_u8, off)
                         check_equal(f"idwt {what} emit_u8={emit_u8} offset={off}", got, want)
                         n += 1
+
+    # K4/K5: one tile, rows past 512 (padded to 1536), columns past 1024
+    # (padded to 2048); int8, int16 and float details; uint8 and float input
+    for shape in ((2, 3, 38, 70), (2, 1100, 96), (1, 72, 1100)):
+        f = torch.from_numpy((rng.random(shape) * 300 - 20).astype(np.float32)).to(dev)
+        for src_name, src in (("f32", f), ("u8", torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev))):
+            for step, quantize in ((1.0, True), (0.75, True), (1.0, False)):
+                what = f"level {src_name}{shape} step={step} quantize={quantize}"
+                bands = ops.dwt_level_quant(src, step, quantize)
+                for i, (a, b) in enumerate(zip(bands, ops.dwt_level_quant_plain(src, step, quantize))):
+                    check_equal(f"{what} band {i}", a, b)
+                check_equal(f"{what} inverse", ops.idwt_level_dequant(*bands, step, quantize),
+                            ops.idwt_level_dequant_plain(*bands, step, quantize))
+                n += 1
+    return n + lifting_vs_plain(rng, dev)
+
+
+def lifting_vs_plain(rng, dev) -> int:
+    """K6/K7 against their twins: seams in each direction (1100 pads to a
+    multiple of 2**k, then to the tile multiple), batched leads, both
+    filters, k = 1-3, uint8 and int32 input, int32 and uint8 output, and
+    partial passes with orig_k > k."""
+    from wicca_tpu_torch.core.pad import pad_to_multiple
+    from wicca_tpu_torch.ops import dwt53_cuda as lops
+
+    n = 0
+    for shape in ((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23)):
+        u8 = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        i32 = torch.from_numpy(rng.integers(-300, 300, shape).astype(np.int32)).to(dev)
+        for k in (1, 2, 3):
+            for src_name, src in (("u8", u8), ("i32", i32)):
+                x = pad_to_multiple(src, 1 << k).contiguous()
+                for filt in ("legall5.3", "haar_int"):
+                    what = f"lifting {filt} k={k} {src_name}{tuple(x.shape)}"
+                    ll, dets = lops.dwt53_multilevel(x, k, filt)
+                    pll, pdets = lops.dwt53_multilevel_plain(x, k, filt)
+                    check_equal(f"{what} ll", ll, pll)
+                    for i, (a, b) in enumerate(zip(flat(dets), flat(pdets))):
+                        check_equal(f"{what} band {i}", a, b)
+                    for emit_u8 in (False, True):
+                        check_equal(f"{what} inverse emit_u8={emit_u8}",
+                                    lops.idwt53_multilevel(ll, dets, k, emit_u8, filt=filt),
+                                    lops.idwt53_multilevel_plain(ll, dets, k, emit_u8, filt=filt))
+                        n += 1
+                    for kk in range(1, k):
+                        check_equal(f"{what} partial {kk} of {k}",
+                                    lops.idwt53_multilevel(ll, dets[k - kk:], kk, orig_k=k, filt=filt),
+                                    lops.idwt53_multilevel_plain(ll, dets[k - kk:], kk, orig_k=k, filt=filt))
+                        n += 1
     return n
 
 
@@ -211,16 +329,14 @@ def phase_main_path(frame_np, dev):
     spec = QuantSpec(base_step=1.0)
     x = torch.from_numpy(frame_np).to(dev)
 
-    ops.reset_launches()
+    reset_all_launches()
     hwc_np = np.moveaxis(frame_np, 0, -1)
     icon_hwc = HaarCoder().get_small_copy(hwc_np, LEVELS, device=dev)  # numpy in, numpy out
     stream = encode(x, levels=LEVELS, spec=spec)
     rec = decode(stream, emit_u8=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    launches = dict(ops.LAUNCHES)
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    launches = read_launches(("icon", "dwt_multilevel_quant", "idwt_multilevel_dequant"), "the Haar main path")
 
     icon = torch.from_numpy(np.ascontiguousarray(np.moveaxis(icon_hwc, -1, 0))).to(dev)
     pll, pdets, prec = plain_roundtrip(x, LEVELS, spec)
@@ -231,15 +347,104 @@ def phase_main_path(frame_np, dev):
         ],
         "idwt_multilevel_dequant": [("main reconstruction", rec, prec)],
     }
-    max_abs_err = {}
-    for name, checks in pairs.items():
-        for what, got, want in checks:
-            check_equal(what, got, want)
-        max_abs_err[name] = max((got.double() - want.double()).abs().max().item() for _, got, want in checks)
+    max_abs_err = check_pairs(pairs)
     db = float(psnr(rec, x))
     if not db > 30.0:
         raise AssertionError(f"roundtrip PSNR {db} dB <= 30")
     return x, launches, max_abs_err, db
+
+
+LOSSLESS = (("legall5.3", "rct"), ("legall5.3", "none"), ("haar_int", "none"))  # the first is the headline
+
+
+def plain_lossless(x, wavelet, color):
+    """The lossless codec's pass structure on the plain twins: the stream's
+    LL and planes, the uint8 reconstruction and the level-2 decode."""
+    from wicca_tpu_torch.codec.pipeline import _crop_semantic, _pass_sizes
+    from wicca_tpu_torch.core.color import rct_fwd, rct_inv
+    from wicca_tpu_torch.ops import dwt53_cuda as lops
+
+    h, w = x.shape[-2], x.shape[-1]
+    ll, details, lvl = (rct_fwd(x) if color == "rct" else x), [], 0
+    for k in _pass_sizes(LEVELS):
+        if wavelet == "haar_int":  # pair-local: each pass starts from the semantic extent
+            ll = ll[..., : h >> lvl, : w >> lvl]
+        ll, dets = lops.dwt53_multilevel_plain(ll, k, wavelet)
+        details.extend(dets)
+        lvl += k
+    if wavelet == "haar_int":
+        ll, details = _crop_semantic(ll, details, h, w, LEVELS)
+
+    def inverse(target):
+        rec, hi = ll, LEVELS
+        for k in reversed(_pass_sizes(LEVELS)):
+            if hi <= target:
+                break
+            lo = max(hi - k, target)
+            ch, cw = details[hi - 1][0].shape[-2:]
+            rec = lops.idwt53_multilevel_plain(rec[..., :ch, :cw], details[lo:hi], hi - lo, orig_k=k, filt=wavelet)
+            hi = lo
+        rec = rct_inv(rec) if color == "rct" else rec
+        return rec[..., : h >> target, : w >> target]
+
+    return ll, details, torch.clamp(inverse(0), 0, 255).to(torch.uint8), inverse(2)
+
+
+def phase_lossless(x):
+    """Phase 3b: the depth-5 lossless roundtrip and decode_at_level(st, 2)
+    of each LOSSLESS configuration, held to the frame and the plain path.
+    Returns each configuration's launch counts and the largest difference
+    per kernel (0 when all equal)."""
+    from wicca_tpu_torch import decode, decode_at_level, decode_region, encode
+
+    launches, max_abs_err = {}, {"dwt53_multilevel": 0.0, "idwt53_multilevel": 0.0}
+    window = (H // 2 - 300, H // 2 + 300, W // 2 - 700, W // 2 + 700)  # crosses tile seams both ways
+    for wavelet, color in LOSSLESS:
+        what = f"lossless {wavelet} color={color}"
+        reset_all_launches()
+        st = encode(x, levels=LEVELS, wavelet=wavelet, color=color)
+        rec = decode(st, emit_u8=True)
+        part = decode_at_level(st, 2)
+        torch.cuda.synchronize()
+        launches[(wavelet, color)] = read_launches(("dwt53_multilevel", "idwt53_multilevel"), what)
+        check_equal(f"{what}: roundtrip vs the frame", rec, x)
+        r0, r1, c0, c1 = window
+        check_equal(f"{what}: decode_region{window} vs the frame", decode_region(st, *window, emit_u8=True),
+                    x[..., r0:r1, c0:c1])
+        if wavelet == "legall5.3" and (H, W) == (8704, 6144):  # pass 2's 1088 input rows pad to 1536
+            shapes = (tuple(st.ll.shape), tuple(st.details[3][0].shape), tuple(st.details[4][0].shape))
+            if shapes != ((3, 384, 192), (3, 768, 384), (3, 384, 192)):
+                raise AssertionError(f"{what}: stored shapes {shapes}")
+        pll, pdets, prec, ppart = plain_lossless(x, wavelet, color)
+        err = check_pairs({
+            "dwt53_multilevel": [(f"{what}: ll", st.ll, pll)] + [
+                (f"{what}: plane {i}", a, b) for i, (a, b) in enumerate(zip(flat(st.details), flat(pdets)))],
+            "idwt53_multilevel": [(f"{what}: reconstruction", rec, prec), (f"{what}: decode_at_level 2", part, ppart)],
+        })
+        for name, e in err.items():
+            max_abs_err[name] = max(max_abs_err[name], e)
+    return launches, max_abs_err
+
+
+def phase_level(x):
+    """Phase 3c: K4 -> K5 on the frame as float32 at step 1.0, held to the
+    plain twins. Returns the launch counts and each kernel's largest
+    difference."""
+    from wicca_tpu_torch import ops
+    from wicca_tpu_torch.ops import dwt_cuda
+
+    xf = x.float()
+    reset_all_launches()
+    bands = ops.dwt_level_quant(xf, 1.0)
+    rec = ops.idwt_level_dequant(*bands, 1.0)
+    torch.cuda.synchronize()
+    launches = read_launches(("dwt_level_quant", "idwt_level_dequant"), "the single-level ops")
+    pairs = {
+        "dwt_level_quant": [(f"level band {i}", a, b)
+                            for i, (a, b) in enumerate(zip(bands, dwt_cuda.dwt_level_quant_plain(xf, 1.0)))],
+        "idwt_level_dequant": [("level inverse", rec, dwt_cuda.idwt_level_dequant_plain(*bands, 1.0))],
+    }
+    return launches, check_pairs(pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +452,34 @@ def phase_main_path(frame_np, dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_times(x, launches, max_abs_err, reps, rate):
-    from wicca_tpu_torch import HaarCoder, QuantSpec, decode, encode
+def lifting_ops(n: int, k: int) -> float:
+    """Integer operations of k lifting levels over n input samples: about 8
+    per sample per level (two lifting steps in each direction)."""
+    return 8 * n * sum(0.25**i for i in range(k))
+
+
+def time_passes(passes, reps, rate):
+    """Rows of times for ``(kernel, pass, kernel call, plain call, bytes
+    moved, operations, runs)`` tuples; ``runs``: how many times the pass
+    runs in the main-path run whose launches the ``kernels`` line counts
+    (0: timed beside it), the weight of the pass in the kernel's totals."""
+    rows = []
+    for name, label, kern, plain, b, ops_count, runs in passes:
+        reset_all_launches()
+        kern()
+        launches = launch_counts()[name]
+        call_ms = time_ms(kern, reps)  # CUDA events around the wrapper call: host + device
+        ms = device_ms(kern, reps, KERNELS[name][2], launches)
+        rows.append(dict(kernel=name, part=label, runs=runs, launches=launches, ms=call_ms if ms is None else ms,
+                         timing="cuda events" if ms is None else "profiler device time", call_ms=call_ms,
+                         plain_ms=time_ms(plain, max(10, reps // 2), warmup=1), bytes=b, operations=ops_count,
+                         bytes_ms=b / rate * 1e3, operations_ms=ops_count / F32_PEAK * 1e3))
+    return rows
+
+
+def haar_passes(x):
+    """K1-K3 at the Haar main path's shapes."""
+    from wicca_tpu_torch import QuantSpec
     from wicca_tpu_torch.ops import dwt_cuda as ops
 
     spec = QuantSpec(base_step=1.0)
@@ -259,71 +490,141 @@ def phase_times(x, launches, max_abs_err, reps, rate):
     rec3 = ops.idwt_multilevel_dequant(ll5, dets45, s45)
     out = ops.idwt_multilevel_dequant(rec3, dets13, s13, emit_u8=True)
     icon = ops.icon(x, LEVELS)
-
-    # (kernel, pass, kernel call, plain call, bytes moved, operations); bytes
-    # count each input read once and each output written once; operations
-    # are the arithmetic per sample the pass needs (1 add per icon input
-    # byte; ~8 per forward and ~12 per inverse sample)
+    # bytes count each input read once and each output written once;
+    # operations are the arithmetic per sample the pass needs (1 add per
+    # icon input byte; ~8 per forward and ~12 per inverse sample)
     n = x.numel()
-    passes = [
+    return [
         ("icon", "depth 5", lambda: ops.icon(x, LEVELS), lambda: ops.icon_plain(x, LEVELS),
-         nbytes(x, icon), n),
+         nbytes(x, icon), n, 1),
         ("dwt_multilevel_quant", "levels 1-3 from u8", lambda: ops.dwt_multilevel_quant(x, s13),
-         lambda: ops.dwt_multilevel_quant_plain(x, s13), nbytes(x, ll3, *flat(dets13)), 8 * n),
+         lambda: ops.dwt_multilevel_quant_plain(x, s13), nbytes(x, ll3, *flat(dets13)), 8 * n, 1),
         ("dwt_multilevel_quant", "levels 4-5 from f32", lambda: ops.dwt_multilevel_quant(ll3, s45),
-         lambda: ops.dwt_multilevel_quant_plain(ll3, s45), nbytes(ll3, ll5, *flat(dets45)), 8 * ll3.numel()),
+         lambda: ops.dwt_multilevel_quant_plain(ll3, s45), nbytes(ll3, ll5, *flat(dets45)), 8 * ll3.numel(), 1),
         ("idwt_multilevel_dequant", "levels 5-4 to f32",
          lambda: ops.idwt_multilevel_dequant(ll5, dets45, s45),
          lambda: ops.idwt_multilevel_dequant_plain(ll5, dets45, s45),
-         nbytes(ll5, rec3, *flat(dets45)), 12 * rec3.numel()),
+         nbytes(ll5, rec3, *flat(dets45)), 12 * rec3.numel(), 1),
         ("idwt_multilevel_dequant", "levels 3-1 to u8",
          lambda: ops.idwt_multilevel_dequant(rec3, dets13, s13, emit_u8=True),
          lambda: ops.idwt_multilevel_dequant_plain(rec3, dets13, s13, emit_u8=True),
-         nbytes(rec3, out, *flat(dets13)), 12 * out.numel()),
+         nbytes(rec3, out, *flat(dets13)), 12 * out.numel(), 1),
     ]
-    rows = []
-    for name, label, kern, plain, b, ops_count in passes:
-        call_ms = time_ms(kern, reps)  # CUDA events around the wrapper call: host + device
-        ms = device_ms(kern, reps, KERNEL_SYMBOL[name])
-        rows.append(dict(kernel=name, part=label, ms=call_ms if ms is None else ms,
-                         timing="cuda events" if ms is None else "profiler device time", call_ms=call_ms,
-                         plain_ms=time_ms(plain, max(10, reps // 2), warmup=1), bytes=b, operations=ops_count,
-                         bytes_ms=b / rate * 1e3, operations_ms=ops_count / F32_PEAK * 1e3))
 
+
+def level_passes(x):
+    """K4/K5 on the frame as float32 at step 1.0 (int8 codes)."""
+    from wicca_tpu_torch.ops import dwt_cuda as ops
+
+    xf = x.float()
+    bands = ops.dwt_level_quant(xf, 1.0)
+    rec = ops.idwt_level_dequant(*bands, 1.0)
+    return [
+        ("dwt_level_quant", "level 1 from f32", lambda: ops.dwt_level_quant(xf, 1.0),
+         lambda: ops.dwt_level_quant_plain(xf, 1.0), nbytes(xf, *bands), 5 * xf.numel(), 1),
+        ("idwt_level_dequant", "level 1 to f32", lambda: ops.idwt_level_dequant(*bands, 1.0),
+         lambda: ops.idwt_level_dequant_plain(*bands, 1.0), nbytes(*bands, rec), 6 * rec.numel(), 1),
+    ]
+
+
+def lifting_passes(x):
+    """K6/K7 at the lossless path's shapes. The headline (legall5.3, rct)
+    run is encode, decode and decode_at_level(st, 2): K6 runs its two passes
+    once; K7 runs levels 5-4 twice (in decode and in decode_at_level), levels
+    3-1 once and the partial level 3 of 3 once. The uint8 regimes of
+    color='none' are timed beside them."""
+    from wicca_tpu_torch.core.color import rct_fwd
+    from wicca_tpu_torch.ops import dwt53_cuda as lops
+
+    yuv = rct_fwd(x)
+    ll3, d13 = lops.dwt53_multilevel(yuv, 3)
+    ll5, d45 = lops.dwt53_multilevel(ll3, 2)
+    rec3 = lops.idwt53_multilevel(ll5, d45, 2)[..., : ll3.shape[-2], : ll3.shape[-1]].contiguous()
+    rec = lops.idwt53_multilevel(rec3, d13, 3)
+    part = lops.idwt53_multilevel(rec3, d13[2:], 1, orig_k=3)
+    ull3, ud13 = lops.dwt53_multilevel(x, 3)
+    urec = lops.idwt53_multilevel(ull3, ud13, 3, emit_u8=True)
+    full = lops.idwt53_multilevel(ll5, d45, 2)
+    return [
+        ("dwt53_multilevel", "levels 1-3 from i32", lambda: lops.dwt53_multilevel(yuv, 3),
+         lambda: lops.dwt53_multilevel_plain(yuv, 3), nbytes(yuv, ll3, *flat(d13)), lifting_ops(yuv.numel(), 3),
+         1),
+        ("dwt53_multilevel", "levels 4-5 from i32", lambda: lops.dwt53_multilevel(ll3, 2),
+         lambda: lops.dwt53_multilevel_plain(ll3, 2), nbytes(ll3, ll5, *flat(d45)), lifting_ops(ll3.numel(), 2),
+         1),
+        ("dwt53_multilevel", "levels 1-3 from u8", lambda: lops.dwt53_multilevel(x, 3),
+         lambda: lops.dwt53_multilevel_plain(x, 3), nbytes(x, ull3, *flat(ud13)), lifting_ops(x.numel(), 3),
+         0),
+        ("idwt53_multilevel", "levels 5-4 to i32", lambda: lops.idwt53_multilevel(ll5, d45, 2),
+         lambda: lops.idwt53_multilevel_plain(ll5, d45, 2), nbytes(ll5, full, *flat(d45)),
+         lifting_ops(full.numel(), 2), 2),
+        ("idwt53_multilevel", "levels 3-1 to i32", lambda: lops.idwt53_multilevel(rec3, d13, 3),
+         lambda: lops.idwt53_multilevel_plain(rec3, d13, 3), nbytes(rec3, rec, *flat(d13)),
+         lifting_ops(rec.numel(), 3), 1),
+        ("idwt53_multilevel", "levels 3-1 to u8", lambda: lops.idwt53_multilevel(ull3, ud13, 3, emit_u8=True),
+         lambda: lops.idwt53_multilevel_plain(ull3, ud13, 3, emit_u8=True), nbytes(ull3, urec, *flat(ud13)),
+         lifting_ops(urec.numel(), 3), 0),
+        ("idwt53_multilevel", "level 3 of 3 (decode_at_level)", lambda: lops.idwt53_multilevel(rec3, d13[2:], 1, orig_k=3),
+         lambda: lops.idwt53_multilevel_plain(rec3, d13[2:], 1, orig_k=3), nbytes(rec3, part, *flat(d13[2:])),
+         lifting_ops(part.numel(), 1), 1),
+    ]
+
+
+def roundtrip_times(fn, reps):
+    """A roundtrip called alone and back to back, its device-busy time and
+    the idle shares."""
+    alone_ms = time_ms(fn, reps)
+    stream_ms = loop_ms(fn, reps)
+    busy_ms = device_ms(fn, reps)
+    mp = H * W / 1e6
+    return {
+        "alone_ms": alone_ms, "alone_MPs": mp / alone_ms * 1e3, "device_busy_ms": busy_ms,
+        "alone_idle_share": None if busy_ms is None else 1 - busy_ms / alone_ms,
+        "back_to_back_ms": stream_ms, "back_to_back_MPs": mp / stream_ms * 1e3,
+        "back_to_back_idle_share": None if busy_ms is None else 1 - busy_ms / stream_ms,
+    }
+
+
+def phase_times(x, launches, max_abs_err, reps, rate):
+    from wicca_tpu_torch import HaarCoder, QuantSpec, decode, encode
+    from wicca_tpu_torch.ops import dwt_cuda as ops
+
+    rows = time_passes(haar_passes(x) + level_passes(x) + lifting_passes(x), reps, rate)
     library = {"icon": time_ms(lambda: torch.nn.functional.avg_pool2d(x.float(), 32), reps)}
     kernels = []
-    for name in REPLACES:
+    for name, (replaces, source, _) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        bytes_ms = sum(r["bytes_ms"] for r in mine)
-        ops_ms = sum(r["operations_ms"] for r in mine)
+        if sum(r["launches"] * r["runs"] for r in mine) != launches[name]:
+            raise AssertionError(f"{name}: the timed passes do not add up to the main path's {launches[name]} "
+                                 f"launches: {[(r['part'], r['launches'], r['runs']) for r in mine]}")
+        bytes_ms = sum(r["bytes_ms"] * r["runs"] for r in mine)
+        ops_ms = sum(r["operations_ms"] * r["runs"] for r in mine)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max_abs_err[name],
-            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+            "ms": sum(r["ms"] * r["runs"] for r in mine), "plain_ms": sum(r["plain_ms"] * r["runs"] for r in mine),
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library.get(name),
         })
 
-    def roundtrip():
-        return decode(encode(x, levels=LEVELS, spec=spec), emit_u8=True)
-
+    spec = QuantSpec(base_step=1.0)
     mp = H * W / 1e6
-    roundtrip_ms = time_ms(roundtrip, reps)
-    stream_ms = loop_ms(roundtrip, reps)
-    busy_ms = device_ms(roundtrip, reps)
     icon_ms = time_ms(lambda: ops.icon(x, LEVELS), reps)
     hwc = x.permute(1, 2, 0)
-    coder_ms = time_ms(lambda: HaarCoder().get_small_copy(hwc, LEVELS), reps)
     e2e = {
-        "roundtrip_depth5_ms": roundtrip_ms, "roundtrip_depth5_MPs": mp / roundtrip_ms * 1e3,
-        "roundtrip_device_busy_ms": busy_ms,
-        "roundtrip_device_idle_share": None if busy_ms is None else 1 - busy_ms / roundtrip_ms,
-        "roundtrip_back_to_back_ms": stream_ms, "roundtrip_back_to_back_MPs": mp / stream_ms * 1e3,
-        "back_to_back_idle_share": None if busy_ms is None else 1 - busy_ms / stream_ms,
+        "haar_roundtrip_depth5": roundtrip_times(lambda: decode(encode(x, levels=LEVELS, spec=spec), emit_u8=True),
+                                                 reps),
+        "haar_roundtrip_bytes": sum(r["bytes"] for r in rows if r["kernel"] in ("dwt_multilevel_quant",
+                                                                              "idwt_multilevel_dequant")),
         "icon_depth5_ms": icon_ms, "icon_depth5_MPs": mp / icon_ms * 1e3,
-        "get_small_copy_hwc_tensor_ms": coder_ms,
-        "roundtrip_bytes": sum(r["bytes"] for r in rows if r["kernel"] != "icon"),
+        "get_small_copy_hwc_tensor_ms": time_ms(lambda: HaarCoder().get_small_copy(hwc, LEVELS), reps),
     }
+    for color in ("rct", "none"):
+        e2e[f"lossless_{color}_roundtrip_depth5"] = roundtrip_times(
+            lambda c=color: decode(encode(x, levels=LEVELS, wavelet="legall5.3", color=c), emit_u8=True), reps)
+    e2e["lossless_rct_roundtrip_bytes"] = sum(r["bytes"] for r in rows
+                                              if r["kernel"] in ("dwt53_multilevel", "idwt53_multilevel") and r["runs"]
+                                              and "decode_at_level" not in r["part"])
     return rows, kernels, e2e
 
 
@@ -361,13 +662,30 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     frame = rng.integers(0, 256, size=(3, H, W), dtype=np.uint8)
     x, launches, max_abs_err, db = phase_main_path(frame, torch.device("cuda"))
-    print(f"phase 3: 3x{H}x{W} depth {LEVELS}: icon, LL, {3 * LEVELS} code planes and reconstruction equal "
+    print(f"phase 3a: 3x{H}x{W} depth {LEVELS}: icon, LL, {3 * LEVELS} code planes and reconstruction equal "
           f"the plain path; PSNR {db:.4f} dB; launches {json.dumps(launches)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
+    lossless_launches, err = phase_lossless(x)
+    for (wavelet, color), counts in lossless_launches.items():
+        print(f"phase 3b: lossless {wavelet} color={color} depth {LEVELS}: decode equals the frame bit for bit; "
+              f"LL, {3 * LEVELS} planes and decode_at_level(2) equal the plain path; launches {json.dumps(counts)}",
+              flush=True)
+    print(f"phase 3b: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches.update(lossless_launches[LOSSLESS[0]])
+    max_abs_err.update(err)
+
+    t0 = time.perf_counter()
+    level_launches, err = phase_level(x)
+    print(f"phase 3c: dwt_level_quant -> idwt_level_dequant on the frame as float32 equal the plain twins; "
+          f"launches {json.dumps(level_launches)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches.update(level_launches)
+    max_abs_err.update(err)
+
     rows, kernels, e2e = phase_times(x, launches, max_abs_err, args.reps, rate)
     for r in rows:
-        print(f"  {r['kernel']:<24} {r['part']:<20} {r['ms']:.4f} ms ({r['timing']}; "
+        print(f"  {r['kernel']:<24} {r['part']:<31} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e}))

@@ -94,7 +94,7 @@ def test_psnr_of_roundtrip():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(wavelet="cdf97"), dict(wavelet="legall5.3"), dict(color="ict"), dict(bit_depth=12),
+    dict(wavelet="cdf97"), dict(wavelet="db2"), dict(color="ict"), dict(bit_depth=12),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
@@ -105,7 +105,7 @@ def test_unported_streams_raise():
     with pytest.raises(NotImplementedError):
         tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint16), levels=2)
     ts = tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint8), levels=2)
-    for change in (dict(roi_shift=3), dict(wavelet="db2"), dict(color="rct"), dict(bit_depth=16)):
+    for change in (dict(roi_shift=3), dict(wavelet="db2"), dict(color="ict"), dict(bit_depth=16)):
         with pytest.raises(NotImplementedError):
             tpipe.decode(dataclasses.replace(ts, **change))
     with pytest.raises(ValueError):

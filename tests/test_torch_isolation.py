@@ -11,10 +11,10 @@ import pytest
 import torch
 
 import wicca_tpu_torch
-from wicca_tpu_torch import HaarCoder, QuantSpec, decode, encode
+from wicca_tpu_torch import HaarCoder, QuantSpec, decode, decode_at_level, encode, ops
 from wicca_tpu_torch._device import resolve_device
 from wicca_tpu_torch.codec.interop import stream_from_arrays
-from wicca_tpu_torch.ops import dwt_cuda
+from wicca_tpu_torch.ops import dwt53_cuda, dwt_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -38,7 +38,8 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for name in ("wicca_tpu_torch.ops.dwt_cuda", "wicca_tpu_torch.ops._build", "wicca_tpu_torch.codec.interop",
-                 "wicca_tpu_torch.coder", "wicca_tpu_torch.core.haar"):
+                 "wicca_tpu_torch.coder", "wicca_tpu_torch.core.haar", "wicca_tpu_torch.ops.dwt53_cuda",
+                 "wicca_tpu_torch.core.lifting", "wicca_tpu_torch.core.color"):
         assert name in res["modules"]
 
 
@@ -76,12 +77,20 @@ def test_tensor_runs_where_it_lies():
 
 def test_cpu_runs_leave_launch_counters_at_zero():
     dwt_cuda.reset_launches()
+    dwt53_cuda.reset_launches()
     img = np.random.default_rng(0).integers(0, 256, (3, 40, 56), dtype=np.uint8)
     stream = encode(img, levels=5, spec=QuantSpec(0.75), device="cpu")
     decode(stream, emit_u8=True)
     decode(stream)
     HaarCoder().get_small_copy(np.moveaxis(img, 0, -1), 7, device="cpu")
-    assert dwt_cuda.LAUNCHES == {"icon": 0, "dwt_multilevel_quant": 0, "idwt_multilevel_dequant": 0}
+    lossless = encode(img, levels=4, wavelet="legall5.3", color="rct", device="cpu")
+    decode(lossless, emit_u8=True)
+    decode_at_level(lossless, 2)
+    ops.idwt_level_dequant(*ops.dwt_level_quant(torch.from_numpy(img).float()))
+    assert set(dwt_cuda.LAUNCHES) == {"icon", "dwt_multilevel_quant", "idwt_multilevel_dequant", "dwt_level_quant",
+                                      "idwt_level_dequant"}
+    assert set(dwt53_cuda.LAUNCHES) == {"dwt53_multilevel", "idwt53_multilevel"}
+    assert not any(dwt_cuda.LAUNCHES.values()) and not any(dwt53_cuda.LAUNCHES.values())
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
@@ -97,6 +106,19 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         dwt_cuda.dwt_multilevel_quant(torch.zeros((1, 12, 12), dtype=torch.uint8), (1.0, 1.0, 1.0))
     with pytest.raises(ValueError):
         dwt_cuda.dwt_multilevel_quant(torch.zeros((1, 8, 8), dtype=torch.int32), (1.0,))
+    x = torch.zeros((1, 12, 12), dtype=torch.uint8)
+    for k, filt in ((3, "legall5.3"), (4, "legall5.3"), (1, "cdf97")):
+        with pytest.raises(ValueError):
+            dwt53_cuda.dwt53_multilevel(x, k, filt)
+    ll, dets = dwt53_cuda.dwt53_multilevel(x, 1)
+    with pytest.raises(ValueError):
+        dwt53_cuda.idwt53_multilevel(ll, dets, 1, orig_k=0)
+    with pytest.raises(ValueError):
+        dwt53_cuda.idwt53_multilevel(ll, dets, 2)
+    with pytest.raises(ValueError):
+        dwt53_cuda.idwt53_multilevel(ll, [(dets[0][0], dets[0][1], dets[0][2][..., :3])], 1)
+    with pytest.raises(ValueError):
+        dwt53_cuda.idwt53_multilevel(ll, [tuple(b.to(torch.int32) for b in dets[0])], 1)
     assert wicca_tpu_torch.__all__
 
 
@@ -117,3 +139,16 @@ def test_kernels_equal_plain_twins_on_the_card():
     for emit_u8 in (False, True):
         got = dwt_cuda.idwt_multilevel_dequant(ll, dets, steps, emit_u8, 0.3)
         assert torch.equal(got, dwt_cuda.idwt_multilevel_dequant_plain(ll, dets, steps, emit_u8, 0.3))
+    xf = x.float()
+    for step, quantize in ((0.75, True), (1.0, False)):
+        bands = dwt_cuda.dwt_level_quant(xf, step, quantize)
+        assert all(torch.equal(a, b) for a, b in zip(bands, dwt_cuda.dwt_level_quant_plain(xf, step, quantize)))
+        got = dwt_cuda.idwt_level_dequant(*bands, step, quantize)
+        assert torch.equal(got, dwt_cuda.idwt_level_dequant_plain(*bands, step, quantize))
+    for filt in ("legall5.3", "haar_int"):
+        ll, dets = dwt53_cuda.dwt53_multilevel(x, 3, filt)
+        pll, pdets = dwt53_cuda.dwt53_multilevel_plain(x, 3, filt)
+        assert torch.equal(ll, pll) and all(torch.equal(a, b) for da, db in zip(dets, pdets) for a, b in zip(da, db))
+        got = dwt53_cuda.idwt53_multilevel(ll, dets, 3, emit_u8=True, filt=filt)
+        assert torch.equal(got, dwt53_cuda.idwt53_multilevel_plain(ll, dets, 3, emit_u8=True, filt=filt))
+        assert torch.equal(got, x)

@@ -1,4 +1,4 @@
-"""The CUDA kernels of ``wicca_tpu_torch/csrc`` built by the host C++
+"""The CUDA kernels of ``wicca_tpu_torch/csrc`` (every source file) built by the host C++
 compiler (``host_emulation.h`` runs each launch thread by thread) and held
 against their plain PyTorch twins through the wrappers' own launch code.
 This checks the kernels' indexing and arithmetic without a card; the card
@@ -14,6 +14,7 @@ import torch
 
 from wicca_tpu_torch.core.pad import pad_to_multiple
 from wicca_tpu_torch.ops import _build
+from wicca_tpu_torch.ops import dwt53_cuda
 from wicca_tpu_torch.ops import dwt_cuda as ops
 
 STEP_SETS = {
@@ -29,9 +30,9 @@ def host_lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    so = tmp_path_factory.mktemp("host_kernels") / "libwicca_haar_host.so"
+    so = tmp_path_factory.mktemp("host_kernels") / "libwicca_host.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++",
-                    "-I", str(_build.CSRC), str(_build.CSRC / "haar_kernels.cu"), "-o", str(so)],
+                    "-I", str(_build.CSRC), *(str(_build.CSRC / src) for src in _build.SOURCES), "-o", str(so)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     _build._declare(lib)
@@ -91,3 +92,61 @@ def test_codec_pass_structure_matches_plain(host_lib):
     pll5, pd45 = ops.dwt_multilevel_quant_plain(pll3, s45)
     prec3 = ops.idwt_multilevel_dequant_plain(pll5, pd45, s45)
     _equal(out, ops.idwt_multilevel_dequant_plain(prec3, pd13, s13, emit_u8=True))
+
+
+@pytest.mark.parametrize("step,quantize", [(1.0, True), (0.75, True), (1.0, False)])
+@pytest.mark.parametrize("shape", [(2, 3, 38, 70), (1, 1100, 96), (1, 72, 1100)])
+def test_level_kernels_match_plain(host_lib, shape, step, quantize):
+    """K4 and K5, with the tile padding (H > 512, W > 1024) read as clamps."""
+    x = torch.from_numpy((np.random.default_rng(3).random(shape) * 300 - 20).astype(np.float32))
+    bands = ops._launch_dwt_level(host_lib, x, step, quantize, 0)
+    for a, b in zip(bands, ops.dwt_level_quant_plain(x, step, quantize)):
+        _equal(a, b)
+    _equal(ops._launch_idwt_level(host_lib, bands[0], bands[1:], step, quantize, 0),
+           ops.idwt_level_dequant_plain(*bands, step, quantize))
+
+
+@pytest.mark.parametrize("src", ["u8", "i32"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("filt", ["legall5.3", "haar_int"])
+def test_lifting_kernels_match_plain(host_lib, filt, k, src):
+    """K6 and K7 on shapes that cross the tile seams in each direction, full
+    and partial (orig_k > k) inverse passes, int32 and uint8 out."""
+    rng = np.random.default_rng(k)
+    for shape in [(2, 1104, 96), (1, 72, 1104), (2, 3, 40, 24)]:
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8) if src == "u8"
+                             else rng.integers(-300, 300, shape).astype(np.int32))
+        ll, dets = dwt53_cuda._launch_fwd(host_lib, x, k, filt, 0)
+        pll, pdets = dwt53_cuda.dwt53_multilevel_plain(x, k, filt)
+        _equal(ll, pll)
+        for bands, pbands in zip(dets, pdets):
+            for a, b in zip(bands, pbands):
+                _equal(a, b)
+        for emit_u8 in (False, True):
+            _equal(dwt53_cuda._launch_inv(host_lib, ll, dets, k, emit_u8, k, filt, 0),
+                   dwt53_cuda.idwt53_multilevel_plain(ll, dets, k, emit_u8, k, filt))
+        for kk in range(1, k):
+            _equal(dwt53_cuda._launch_inv(host_lib, ll, dets[k - kk:], kk, False, k, filt, 0),
+                   dwt53_cuda.idwt53_multilevel_plain(ll, dets[k - kk:], kk, False, k, filt))
+
+
+def test_lossless_pass_structure_matches_plain(host_lib):
+    """Depth 5 as the lossless codec runs it: levels 1-3 from uint8 (rows
+    padded to 1536 by the tiling), 4-5 from the int32 LL, then the inverse
+    passes, the finest emitting uint8, and a partial pass as decode_at_level
+    runs it."""
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (3, 1088, 96), dtype=np.uint8))
+    ll3, d13 = dwt53_cuda._launch_fwd(host_lib, x, 3, "legall5.3", 0)
+    assert ll3.shape == (3, 192, 12)
+    ll5, d45 = dwt53_cuda._launch_fwd(host_lib, ll3, 2, "legall5.3", 0)
+    rec3 = dwt53_cuda._launch_inv(host_lib, ll5, d45, 2, False, 2, "legall5.3", 0)
+    _equal(rec3, ll3)
+    out = dwt53_cuda._launch_inv(host_lib, rec3, d13, 3, True, 3, "legall5.3", 0)
+    _equal(out[..., :1088, :], x)
+    pll3, pd13 = dwt53_cuda.dwt53_multilevel_plain(x, 3)
+    pll5, pd45 = dwt53_cuda.dwt53_multilevel_plain(pll3, 2)
+    _equal(ll5, pll5)
+    prec3 = dwt53_cuda.idwt53_multilevel_plain(pll5, pd45, 2)
+    _equal(rec3, prec3)
+    _equal(dwt53_cuda._launch_inv(host_lib, rec3, d13[2:], 1, False, 3, "legall5.3", 0),
+           dwt53_cuda.idwt53_multilevel_plain(prec3, pd13[2:], 1, orig_k=3))

@@ -1,8 +1,11 @@
 """wicca_tpu_torch — the PyTorch/CUDA port of wicca_tpu for NVIDIA Hopper.
 
-This slice holds the Haar icon path and the 8-bit Haar codec path. Their
-device work runs in hand-written CUDA kernels (``csrc/``), built with nvcc
-at first use; every kernel has a plain PyTorch twin that the CPU runs.
+So far it holds the Haar icon path, the 8-bit Haar codec, the lossless
+8-bit codec (LeGall 5/3 and integer Haar lifting, the reversible color
+transform), progressive and region decode, the lifting transforms and the
+single-level Haar ops. Their device work runs in hand-written CUDA kernels
+(``csrc/``), built with nvcc at first use; every kernel has a plain PyTorch
+twin that the CPU runs.
 
 Device rule: a tensor input runs where it lies; a numpy input goes to
 ``device="cuda"`` unless the caller passes ``device="cpu"``; with no card
@@ -16,13 +19,16 @@ from wicca_tpu_torch.codec.pipeline import (
     CodeStream,
     compression_ratio,
     decode,
+    decode_at_level,
+    decode_region,
     encode,
     entropy_ratio,
     estimated_entropy_bytes,
     icon_from_stream,
 )
-from wicca_tpu_torch.coder import HaarCoder, WaveletCoder
+from wicca_tpu_torch.coder import HaarCoder, LiftingCoder, WaveletCoder
 from wicca_tpu_torch.core.haar import Pyramid, block_mean_ll, dwt2, haar_icon, idwt2
+from wicca_tpu_torch.core.lifting import dwt2_lifting, idwt2_lifting, lifting_wavelets, register_wavelet
 from wicca_tpu_torch.core.metrics import mse, psnr
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
 from wicca_tpu_torch.core.quant import QuantSpec
@@ -30,21 +36,28 @@ from wicca_tpu_torch.core.quant import QuantSpec
 __all__ = [
     "CodeStream",
     "HaarCoder",
+    "LiftingCoder",
     "Pyramid",
     "QuantSpec",
     "WaveletCoder",
     "block_mean_ll",
     "compression_ratio",
     "decode",
+    "decode_at_level",
+    "decode_region",
     "dwt2",
+    "dwt2_lifting",
     "encode",
     "entropy_ratio",
     "estimated_entropy_bytes",
     "haar_icon",
     "icon_from_stream",
     "idwt2",
+    "idwt2_lifting",
+    "lifting_wavelets",
     "mse",
     "pad_to_multiple",
     "psnr",
+    "register_wavelet",
     "unpad",
 ]

@@ -1,9 +1,16 @@
-"""The Haar image codec: fused DWT + deadzone quantization encode, fused
-dequantization + inverse DWT decode (counterpart of
-``wicca_tpu/codec/pipeline.py``, 8-bit Haar path).
+"""The 8-bit image codec (counterpart of ``wicca_tpu/codec/pipeline.py``):
 
-``encode`` -> :class:`CodeStream` (int8/int16 detail codes + float32 LL)
-``decode`` -> reconstructed image, cropped to the original dims.
+* ``wavelet='haar'``: fused DWT + deadzone quantization (kernel K2) and
+  fused dequantization + inverse DWT (K3), lossy;
+* ``wavelet='legall5.3'`` (alias ``'cdf53'``) or ``'haar_int'``, optionally
+  after the reversible color transform (``color='rct'``): the lossless
+  JPEG2000-style path on tile-local integer lifting (K6/K7); ``decode``
+  returns the input bit for bit.
+
+``encode`` -> :class:`CodeStream`; ``decode`` -> reconstructed image,
+cropped to the original dims; ``decode_at_level`` (resolution
+scalability), ``decode_region`` (spatial random access) and
+``icon_from_stream`` read only part of a stream.
 
 Every level partition, shape and rounding step follows the JAX package, so
 streams cross between the two (:mod:`wicca_tpu_torch.codec.interop`).
@@ -17,17 +24,27 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch._device import as_tensor
+from wicca_tpu_torch.core.color import rct_fwd, rct_inv
+from wicca_tpu_torch.core.lifting import idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
 from wicca_tpu_torch.core.quant import QuantSpec
-from wicca_tpu_torch.ops.dwt_cuda import contiguous_aligned, dwt_multilevel_quant, idwt_multilevel_dequant
+from wicca_tpu_torch.ops.dwt53_cuda import dwt53_multilevel, idwt53_multilevel
+from wicca_tpu_torch.ops.dwt_cuda import (
+    _TILE_H,
+    _TILE_W,
+    contiguous_aligned,
+    dwt_multilevel_quant,
+    idwt_multilevel_dequant,
+)
 
 # where each missing piece of the codec is scheduled (ROADMAP.md, Queue 1)
 _LATER = {
-    "wavelet": "Queue 1 item 7 (remaining codec surface: lifting wavelets, kernels K6-K9)",
-    "color": "Queue 1 item 7 (core/color.py rct/ict)",
-    "bit_depth": "Queue 1 item 7 (the 9-16-bit int32 path)",
-    "roi": "Queue 1 item 7 (codec/roi.py)",
+    "wavelet": "Queue 1 item 7b (slice 3: the float lifting wavelets on kernels K8/K9)",
+    "color": "Queue 1 item 7b (slice 3: the ict color transform)",
+    "bit_depth": "Queue 1 item 7c (the 9-16-bit int32 path)",
+    "roi": "Queue 1 item 7d (codec/roi.py)",
 }
+_PORTED_WAVELETS = ("haar", "legall5.3", "cdf53", "haar_int")
 
 
 def _not_yet(what: str, value) -> NotImplementedError:
@@ -45,9 +62,19 @@ def _pass_sizes(levels: int) -> list[int]:
     return sizes
 
 
+def _pass_partition(levels: int) -> list[tuple[int, int]]:
+    """``[(lo, hi)]`` fine -> coarse; a pass covers levels ``lo+1..hi``."""
+    out, lo = [], 0
+    for k in _pass_sizes(levels):
+        out.append((lo, lo + k))
+        lo += k
+    return out
+
+
 def _crop_semantic(ll, details, h_sem: int, w_sem: int, levels: int):
     """Keep each stored subband's semantic extent (h_sem, w_sem are the dims
-    after the 2**levels padding). Valid for the pair-local Haar transform."""
+    after the 2**levels padding). Valid for the pair-local transforms (haar,
+    haar_int) only; wide wavelets keep their tile-padded geometry."""
     ll = ll[..., : h_sem >> levels, : w_sem >> levels]
     out = []
     for lvl, bands in enumerate(details, start=1):
@@ -57,10 +84,15 @@ def _crop_semantic(ll, details, h_sem: int, w_sem: int, levels: int):
 
 @dataclasses.dataclass(frozen=True)
 class CodeStream:
-    """Quantized multi-level representation, with the fields of the JAX
-    package's ``CodeStream``. ``details[k]`` = (lh, hl, hh) codes of level
-    k+1 (finest first); ``ll`` = float32 coarse band. ``band_div`` holds the
-    per-plane step divisors of R-D truncation (() = all 1)."""
+    """Multi-level representation, with the fields of the JAX package's
+    ``CodeStream``. ``details[k]`` = (lh, hl, hh) codes of level k+1 (finest
+    first): int8/int16 deadzone codes for haar, exact int16 coefficients for
+    the integer wavelets. ``ll`` = coarse band, float32 (haar) or int32.
+    ``color`` records a channel decorrelation applied before the transform
+    ('rct'); ``layout`` the transform geometry of wide wavelets ('tiled':
+    independent (512, 1024) tiles, as the fused kernels run; 'global':
+    whole-image lifting). ``band_div`` holds the per-plane step divisors of
+    R-D truncation (() = all 1)."""
 
     ll: torch.Tensor
     details: tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
@@ -85,6 +117,15 @@ class CodeStream:
         return n
 
 
+def _split_alpha(x: torch.Tensor):
+    """(the three color planes, the alpha plane or None) of planar input."""
+    return (x[..., :3, :, :], x[..., 3:, :, :]) if x.shape[-3] == 4 else (x, None)
+
+
+def _join_alpha(rgb: torch.Tensor, extra) -> torch.Tensor:
+    return rgb if extra is None else torch.cat([rgb, extra.to(rgb.dtype)], dim=-3)
+
+
 def encode(
     image,
     levels: int = 5,
@@ -97,12 +138,16 @@ def encode(
     bit_depth: int | None = None,
     device=None,
 ) -> CodeStream:
-    """Planar ``(..., H, W)`` uint8 or float image -> :class:`CodeStream`.
+    """Planar ``(..., H, W)`` image -> :class:`CodeStream`.
 
     A tensor is encoded where it lies; a numpy array on ``device`` (CUDA
-    unless the caller says otherwise). uint8 input stays uint8 into the first
-    fused pass (integer-exact early levels); any other dtype is cast to
-    float32 first."""
+    unless the caller says otherwise). ``wavelet='haar'``: uint8 input stays
+    uint8 into the first fused pass (integer-exact early levels), any other
+    dtype is cast to float32. Integer wavelets (``'legall5.3'``/``'cdf53'``,
+    ``'haar_int'``) make a lossless stream: ``spec`` is ignored, details are
+    exact int16, and :func:`decode` returns the input bit for bit.
+    ``color='rct'`` (integer wavelets, planar RGB or RGBA; alpha is carried
+    through) applies the reversible color transform first."""
     x = as_tensor(image, device)
     if bit_depth is None:
         bit_depth = 16 if x.dtype == torch.uint16 else 8
@@ -110,29 +155,49 @@ def encode(
         raise ValueError(f"bit_depth must be in [8, 16], got {bit_depth}")
     if color not in ("none", "rct", "ict"):
         raise ValueError(f"color must be none|rct|ict, got {color!r}")
+    if color != "none" and (x.ndim < 3 or x.shape[-3] not in (3, 4)):
+        raise ValueError("color transforms need planar (..., 3|4, H, W) input (RGB or RGBA)")
+    if color == "rct" and not is_integer_wavelet(wavelet):
+        raise ValueError("rct is reversible — pair it with an integer wavelet")
+    if color == "ict" and is_integer_wavelet(wavelet):
+        raise ValueError("ict is lossy — pair it with a float wavelet")
     if levels < 1:
         raise ValueError("levels must be >= 1")
+    if wavelet != "haar" and wavelet not in lifting_wavelets():
+        raise ValueError(f"Unknown wavelet {wavelet!r}; have {sorted(('haar',) + lifting_wavelets())}")
     if bit_depth != 8:
         raise _not_yet("bit_depth", bit_depth)
-    if color != "none":
+    if color == "ict":
         raise _not_yet("color", color)
-    if wavelet != "haar":
+    if wavelet not in _PORTED_WAVELETS:
         raise _not_yet("wavelet", wavelet)
+    if wavelet == "cdf53":  # stored under its canonical name
+        wavelet = "legall5.3"
     orig = (x.shape[-2], x.shape[-1])
     x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
-    if x.dtype != torch.uint8:
+    if color == "rct":
+        rgb, extra = _split_alpha(x)
+        x = _join_alpha(rct_fwd(rgb), extra)
+    elif wavelet == "haar" and x.dtype != torch.uint8:
         x = x.to(torch.float32)
     h_sem, w_sem = x.shape[-2], x.shape[-1]
     ll = x
     details = []
     lvl = 0
     for k in _pass_sizes(levels):
-        ll = contiguous_aligned(ll[..., : h_sem >> lvl, : w_sem >> lvl])
-        steps = tuple(spec.band_steps(lvl + i + 1) for i in range(k))
-        ll, dets = dwt_multilevel_quant(ll, steps)
+        if wavelet == "haar":
+            ll = contiguous_aligned(ll[..., : h_sem >> lvl, : w_sem >> lvl])
+            ll, dets = dwt_multilevel_quant(ll, tuple(spec.band_steps(lvl + i + 1) for i in range(k)))
+        else:
+            # 5/3 passes keep the tile-padded LL of the previous pass; the
+            # pair-local haar_int crops it back to the semantic extent
+            if wavelet == "haar_int":
+                ll = ll[..., : h_sem >> lvl, : w_sem >> lvl]
+            ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet)
         details.extend(dets)
         lvl += k
-    ll, details = _crop_semantic(ll, details, h_sem, w_sem, levels)
+    if wavelet in ("haar", "haar_int"):
+        ll, details = _crop_semantic(ll, details, h_sem, w_sem, levels)
     return CodeStream(
         ll=ll, details=tuple(details), spec=spec, levels=levels, orig_shape=orig,
         wavelet=wavelet, color=color, chroma_gain=chroma_gain, layout="tiled", bit_depth=bit_depth,
@@ -150,10 +215,31 @@ def _scaled_steps(stream: CodeStream, lvl: int) -> tuple[float, float, float]:
     return (s[0] * d[0], s[1] * d[1], s[2] * d[2])
 
 
+def _widen_div_int(stream: CodeStream) -> CodeStream:
+    """Integer-wavelet streams with R-D divisors: re-widen codes to bin
+    midpoints (sign * (|c| * d + d // 2), 0 stays 0) so the exact integer
+    lifting inverse applies unchanged. No-op otherwise."""
+    if not stream.band_div or not is_integer_wavelet(stream.wavelet):
+        return stream
+
+    def widen(b, d):
+        if d == 1:
+            return b
+        bi = b.to(torch.int32)
+        w = torch.sign(bi) * torch.clamp(bi.abs() * d + d // 2, max=torch.iinfo(b.dtype).max)
+        return w.to(b.dtype)
+
+    details = tuple(
+        tuple(widen(b, d) for b, d in zip(bands, stream.band_div[lvl * 3 : lvl * 3 + 3]))
+        for lvl, bands in enumerate(stream.details)
+    )
+    return dataclasses.replace(stream, details=details, band_div=())
+
+
 def _check_decodable(stream: CodeStream) -> None:
-    if stream.wavelet != "haar":
+    if stream.wavelet not in _PORTED_WAVELETS:
         raise _not_yet("wavelet", stream.wavelet)
-    if stream.color != "none":
+    if stream.color not in ("none", "rct"):
         raise _not_yet("color", stream.color)
     if stream.bit_depth != 8:
         raise _not_yet("bit_depth", stream.bit_depth)
@@ -161,29 +247,200 @@ def _check_decodable(stream: CodeStream) -> None:
         raise _not_yet("roi", stream.roi_shift)
 
 
-def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5) -> torch.Tensor:
-    """CodeStream -> reconstructed image (original dims), float32, or uint8
-    with ``emit_u8`` (clipped and cast inside the finest fused pass).
-    ``recon_offset`` is the deadzone reconstruction point as a fraction of
-    the bin (0.5 = midpoint). Runs where the stream's tensors lie."""
-    _check_decodable(stream)
-    x = stream.ll.to(torch.float32)
+def _fused(stream: CodeStream) -> bool:
+    """Whether the fused pass kernels decode the stream: haar, haar_int
+    (pair-local, so either layout), and tiled 5/3."""
+    return stream.wavelet in ("haar", "haar_int") or stream.layout == "tiled"
+
+
+def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float):
+    """The fused inverse passes, coarse to fine, down to ``target_level``.
+    A pass that crosses the target inverts only its coarse part; for the
+    lifting kernels ``orig_k`` then keeps the encoder's tile clamps.
+    ``emit_u8`` clips and casts inside the pass that reaches level 0."""
+    lifting = stream.wavelet != "haar"
+    filt = "haar_int" if stream.wavelet == "haar_int" else "legall5.3"
+    x = stream.ll
     hi = stream.levels
     for k in reversed(_pass_sizes(stream.levels)):
-        lo = hi - k  # this pass covers levels lo+1..hi
-        dets = [tuple(contiguous_aligned(b) for b in stream.details[i]) for i in range(lo, hi)]
-        steps = tuple(_scaled_steps(stream, i + 1) for i in range(lo, hi))
+        if hi <= target_level:
+            break
+        start = max(hi - k, target_level)
+        dets = [tuple(contiguous_aligned(b) for b in stream.details[i]) for i in range(start, hi)]
         ch, cw = dets[-1][0].shape[-2], dets[-1][0].shape[-1]
-        x = contiguous_aligned(x[..., :ch, :cw])
-        x = idwt_multilevel_dequant(x, dets, steps, emit_u8=emit_u8 and lo == 0, recon_offset=recon_offset)
-        hi = lo
+        u8 = emit_u8 and start == 0
+        if lifting:
+            x = idwt53_multilevel(contiguous_aligned(x[..., :ch, :cw]), dets, len(dets), emit_u8=u8, orig_k=k,
+                                  filt=filt)
+        else:
+            steps = tuple(_scaled_steps(stream, i + 1) for i in range(start, hi))
+            x = idwt_multilevel_dequant(contiguous_aligned(x[..., :ch, :cw].to(torch.float32)), dets, steps,
+                                        emit_u8=u8, recon_offset=recon_offset)
+        hi = start
+    return x
+
+
+def _inverse_global_int(stream: CodeStream, target_level: int) -> torch.Tensor:
+    """Whole-image integer lifting inverse (global-layout streams), plain
+    PyTorch as in the reference, which leaves it to XLA."""
+    x = stream.ll.to(torch.int32)
+    for lvl in range(stream.levels, target_level, -1):
+        lh, hl, hh = (b.to(torch.int32) for b in stream.details[lvl - 1])
+        x = x[..., : lh.shape[-2], : lh.shape[-1]]
+        x = idwt2_level_lifting(x, lh, hl, hh, stream.wavelet)
+    return x
+
+
+def _undo_color(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
+    if stream.color == "none":
+        return x
+    yuv, extra = _split_alpha(x)  # alpha was never rotated
+    return _join_alpha(rct_inv(yuv), extra)
+
+
+def _emit_native(x: torch.Tensor) -> torch.Tensor:
+    """Clip and cast to the 8-bit stream's native uint8."""
+    return torch.clamp(x, 0, 255).to(torch.uint8)
+
+
+def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5) -> torch.Tensor:
+    """CodeStream -> reconstructed image (original dims): float32 (haar) or
+    int32 (integer wavelets), or uint8 with ``emit_u8`` (clipped and cast
+    inside the finest fused pass when no color transform follows).
+    ``recon_offset`` is the deadzone reconstruction point of haar codes as a
+    fraction of the bin (0.5 = midpoint). Runs where the stream's tensors lie."""
+    _check_decodable(stream)
+    stream = _widen_div_int(stream)
+    u8_in = emit_u8 and stream.color == "none"
+    if _fused(stream):
+        x = _inverse_passes(stream, 0, u8_in, recon_offset)
+    else:
+        x = _inverse_global_int(stream, 0)
+    x = _undo_color(stream, x)
+    if emit_u8 and x.dtype != torch.uint8:
+        x = _emit_native(x)
     return unpad(x, *stream.orig_shape)
 
 
-def icon_from_stream(stream: CodeStream) -> torch.Tensor:
-    """uint8 icon straight from the coarse band (free at decode time)."""
+def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False,
+                    recon_offset: float = 0.5) -> torch.Tensor:
+    """Progressive decode at 1/2**target_level resolution from the coarse
+    subbands only (finer detail planes are never read). ``target_level=0``
+    equals :func:`decode`; ``target_level=levels`` returns the LL band
+    itself. Output dims are the original dims divided by 2**target_level
+    (ceil)."""
+    if not 0 <= target_level <= stream.levels:
+        raise ValueError(f"target_level must be in [0, {stream.levels}]")
+    if target_level == 0:
+        return decode(stream, emit_u8=emit_u8, recon_offset=recon_offset)
     _check_decodable(stream)
-    return torch.clamp(stream.ll, 0, 255).to(torch.uint8)
+    stream = _widen_div_int(stream)
+    h, w = stream.orig_shape
+    if _fused(stream):
+        x = _inverse_passes(stream, target_level, False, recon_offset)
+    else:
+        x = _inverse_global_int(stream, target_level)
+    x = unpad(_undo_color(stream, x), -(-h // (1 << target_level)), -(-w // (1 << target_level)))
+    return _emit_native(x) if emit_u8 else x
+
+
+def icon_from_stream(stream: CodeStream) -> torch.Tensor:
+    """uint8 icon straight from the coarse band (free at decode time); a
+    color-transformed stream's LL gets the inverse rotation first."""
+    _check_decodable(stream)
+    return _emit_native(_undo_color(stream, stream.ll))
+
+
+def region_plan(stream: CodeStream, row0: int, row1: int, col0: int, col1: int):
+    """Per-pass windows of a tiled wide-wavelet region decode:
+    ``[(lo, hi, a0, a1, b0, b1)]`` coarse -> fine, the window of the pass
+    covering levels ``lo+1..hi`` in its output space (the 1/2**lo grid),
+    aligned to the encoder's (512, 1024) tile grid there and clamped to the
+    stored (tile-padded) extent."""
+    plan = []
+    for lo, hi in reversed(_pass_partition(stream.levels)):
+        band = stream.details[lo][0]  # level lo+1 band = padded extent / 2
+        eh, ew = band.shape[-2] * 2, band.shape[-1] * 2
+        a0 = (row0 >> lo) // _TILE_H * _TILE_H
+        b0 = (col0 >> lo) // _TILE_W * _TILE_W
+        a1 = min(-(-(-(-row1 // (1 << lo))) // _TILE_H) * _TILE_H, eh)
+        b1 = min(-(-(-(-col1 // (1 << lo))) // _TILE_W) * _TILE_W, ew)
+        plan.append((lo, hi, a0, a1, b0, b1))
+    return plan
+
+
+def region_coefficient_fraction(stream: CodeStream, row0, row1, col0, col1) -> float:
+    """Fraction of stored detail coefficients a tiled wide-wavelet region
+    decode touches."""
+    touched = total = 0
+    for lo, hi, a0, a1, b0, b1 in region_plan(stream, row0, row1, col0, col1):
+        for lvl in range(lo + 1, hi + 1):
+            s = lvl - lo
+            for b in stream.details[lvl - 1]:
+                total += b.shape[-2] * b.shape[-1]
+                touched += ((a1 >> s) - (a0 >> s)) * ((b1 >> s) - (b0 >> s))
+    return touched / max(total, 1)
+
+
+def _decode_region_tiled(stream: CodeStream, row0, row1, col0, col1, emit_u8: bool) -> torch.Tensor:
+    """Hierarchical region decode of a tiled 5/3 stream: the inverse pass
+    cascade coarse -> fine, each pass on its tile-aligned window only
+    (independent tiles), so the result equals the same crop of
+    :func:`decode`."""
+    stream = _widen_div_int(stream)
+    x = None
+    pa0 = pb0 = 0
+    for lo, hi, a0, a1, b0, b1 in region_plan(stream, row0, row1, col0, col1):
+        k = hi - lo
+        dets = [
+            tuple(contiguous_aligned(b[..., a0 >> s : a1 >> s, b0 >> s : b1 >> s]) for b in stream.details[lvl - 1])
+            for lvl, s in ((lvl, lvl - lo) for lvl in range(lo + 1, hi + 1))
+        ]
+        if x is None:
+            ll = stream.ll[..., a0 >> k : a1 >> k, b0 >> k : b1 >> k]
+        else:
+            ll = x[..., (a0 >> k) - pa0 : (a1 >> k) - pa0, (b0 >> k) - pb0 : (b1 >> k) - pb0]
+        x = idwt53_multilevel(contiguous_aligned(ll), dets, k, filt="legall5.3")
+        pa0, pb0 = a0, b0
+    x = _undo_color(stream, x)
+    if emit_u8:
+        x = _emit_native(x)
+    return x[..., row0 - pa0 : row1 - pa0, col0 - pb0 : col1 - pb0]
+
+
+def decode_region(stream: CodeStream, row0: int, row1: int, col0: int, col1: int, emit_u8: bool = False,
+                  recon_offset: float = 0.5) -> torch.Tensor:
+    """Spatial random access: pixels ``[row0:row1, col0:col1)``, exactly the
+    same crop of :func:`decode`, from the coefficients that reach them.
+    haar/haar_int slice at ``2**levels`` alignment; tiled 5/3 runs the pass
+    cascade on tile-aligned windows (:func:`region_plan`); global-layout
+    integer streams add a ``16 * 2**levels`` halo that covers the inverse
+    cascade."""
+    H, W = stream.orig_shape
+    if not (0 <= row0 < row1 <= H and 0 <= col0 < col1 <= W):
+        raise ValueError(f"region [{row0}:{row1}, {col0}:{col1}) outside image {(H, W)}")
+    _check_decodable(stream)
+    lv = stream.levels
+    align = 1 << lv
+    margin = 0
+    if stream.wavelet not in ("haar", "haar_int"):
+        if stream.layout == "tiled":
+            return _decode_region_tiled(stream, row0, row1, col0, col1, emit_u8)
+        margin = 16 << lv
+    r0 = max(0, row0 - margin) // align * align
+    c0 = max(0, col0 - margin) // align * align
+    r1 = -(-(row1 + margin) // align) * align
+    c1 = -(-(col1 + margin) // align) * align
+    details = tuple(
+        tuple(b[..., r0 >> lvl : r1 >> lvl, c0 >> lvl : c1 >> lvl] for b in stream.details[lvl - 1])
+        for lvl in range(1, lv + 1)
+    )
+    sub = dataclasses.replace(
+        stream, ll=stream.ll[..., r0 >> lv : r1 >> lv, c0 >> lv : c1 >> lv], details=details,
+        orig_shape=(min(r1, H) - r0, min(c1, W) - c0),
+    )
+    out = decode(sub, emit_u8=emit_u8, recon_offset=recon_offset)
+    return out[..., row0 - r0 : row1 - r0, col0 - c0 : col1 - c0]
 
 
 def compression_ratio(stream: CodeStream) -> float:

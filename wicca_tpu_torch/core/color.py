@@ -1,0 +1,59 @@
+"""Color transforms for the codec path — plain PyTorch (counterpart of
+``wicca_tpu/core/color.py``).
+
+* RCT — reversible color transform (lossless path, pairs with LeGall 5/3):
+    Y = (R + 2G + B) >> 2 ;  U = B - G ;  V = R - G
+  exactly invertible in int32 via G = Y - ((U + V) >> 2).
+* ICT — irreversible BT.601 YCbCr (lossy path), float32.
+
+All functions take planar ``(..., 3, H, W)`` tensors, channel axis third
+from last.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rct_fwd(x: torch.Tensor) -> torch.Tensor:
+    """Planar RGB int -> (Y, U, V) int32."""
+    x = x.to(torch.int32)
+    r, g, b = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    y = (r + 2 * g + b) >> 2
+    return torch.stack([y, b - g, r - g], dim=-3)
+
+
+def rct_inv(x: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`rct_fwd` (int32 -> int32 RGB)."""
+    x = x.to(torch.int32)
+    y, u, v = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    g = y - ((u + v) >> 2)
+    return torch.stack([v + g, g, u + g], dim=-3)
+
+
+# BT.601 full-range ICT (JPEG2000 irreversible component transform)
+_ICT = (
+    (0.299, 0.587, 0.114),
+    (-0.168736, -0.331264, 0.5),
+    (0.5, -0.418688, -0.081312),
+)
+_ICT_INV = (
+    (1.0, 0.0, 1.402),
+    (1.0, -0.344136, -0.714136),
+    (1.0, 1.772, 0.0),
+)
+
+
+def _mix(x: torch.Tensor, rows) -> torch.Tensor:
+    x = x.to(torch.float32)
+    a, b, c = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    return torch.stack([m[0] * a + m[1] * b + m[2] * c for m in rows], dim=-3)
+
+
+def ict_fwd(x: torch.Tensor) -> torch.Tensor:
+    """Planar RGB -> YCbCr float32 (Cb/Cr zero-centered)."""
+    return _mix(x, _ICT)
+
+
+def ict_inv(x: torch.Tensor) -> torch.Tensor:
+    return _mix(x, _ICT_INV)

@@ -1,11 +1,13 @@
-// Hand-written Hopper kernels for the Haar main path: the icon (K1), the
-// fused multi-level DWT + deadzone quantization (K2) and the fused
-// dequantization + multi-level inverse (K3).
+// Hand-written Hopper kernels for the Haar paths: the icon (K1), the fused
+// multi-level DWT + deadzone quantization (K2), the fused dequantization +
+// multi-level inverse (K3), and the single-level pair K4/K5.
 //
 // Replaces (wicca_tpu/ops/dwt_pallas.py):
 //   K1  icon_pallas                    -> _icon_pass_kernel
 //   K2  dwt_multilevel_quant_pallas    -> _dwt_multi_kernel
 //   K3  idwt_multilevel_dequant_pallas -> _idwt_multi_kernel
+//   K4  dwt_level_quant_pallas         -> _dwt_quant_kernel
+//   K5  idwt_level_dequant_pallas      -> _idwt_dequant_kernel
 //
 // What bounds them on an H100: device-memory bytes. Each does a handful of
 // integer or float operations per byte (the depth-5 roundtrip of a
@@ -17,7 +19,9 @@
 // memory. In K1 and K2 one thread owns one pixel of the pass's coarsest grid
 // and keeps its whole 2^k x 2^k input block in registers, so the k fused
 // levels need no shared memory and no barrier; K3 gives a thread at most a
-// 4x8 output tile (see idwt_dequant_kernel). A warp's 32 threads own 32 neighbouring
+// 4x8 output tile (see idwt_dequant_kernel); K4 and K5, one level each, give a
+// thread one 2x2 block and read the reference's tile padding as an index
+// clamp instead of a padded copy. A warp's 32 threads own 32 neighbouring
 // blocks, so every row access of the warp is one contiguous span, issued as
 // loads/stores of up to 16 bytes. Element offsets are 64-bit (a batched
 // input passes 2^31 elements easily).
@@ -32,29 +36,11 @@
 
 #include <type_traits>
 
-#if defined(__CUDACC__)
-#include <cuda_runtime.h>
-#define WICCA_LAUNCH(kernel, grid, block, stream, ...) kernel<<<grid, block, 0, stream>>>(__VA_ARGS__)
-#else
-#include "host_emulation.h"
-#define WICCA_LAUNCH(kernel, grid, block, stream, ...) \
-  wicca_emulate_launch(grid, block, [&] { kernel(__VA_ARGS__); })
-#endif
-
+#include "launch.cuh"
 #include "haar_kernels.cuh"
 
 namespace wicca {
 namespace {
-
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
-
-dim3 grid_for(int64_t planes, int64_t rows, int64_t cols) {
-  const int64_t gx = (cols + kBlockX - 1) / kBlockX;
-  const int64_t gy = (rows + kBlockY - 1) / kBlockY;
-  return dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy < 65535 ? gy : 65535),
-              static_cast<unsigned>(planes < 65535 ? planes : 65535));
-}
 
 // ---------------------------------------------------------------------------
 // K1: icon. Pass 1 reads uint8 and forms exact int32 sums over the whole
@@ -328,6 +314,95 @@ __global__ void idwt_dequant_kernel(const float* __restrict__ ll, void* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: one Haar level from float32, details quantized (int8/int16 codes) or
+// kept float32. The reference pads a large input to (512, 1024) tile
+// multiples by edge replication; here that padding is an index clamp on the
+// read (H and W are even, so a padded pair has both members on the edge).
+// One thread per output coefficient: a float2 from each of its two rows.
+// ---------------------------------------------------------------------------
+
+enum DetailMode { kCodes8 = 0, kCodes16 = 1, kFloat = 2 };
+
+template <int MODE>
+using DetailT = typename std::conditional<MODE == kCodes8, int8_t,
+                                          typename std::conditional<MODE == kCodes16, int16_t, float>::type>::type;
+
+template <int MODE>
+__global__ void haar_level_fwd_kernel(const float* __restrict__ x, int64_t planes, int64_t h, int64_t w, int64_t ho,
+                                 int64_t wo, float* __restrict__ ll, void* __restrict__ lh, void* __restrict__ hl,
+                                 void* __restrict__ hh, float inv, float qmax) {
+  using D = DetailT<MODE>;
+  const int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (j >= wo) return;
+  for (int64_t p = blockIdx.z; p < planes; p += gridDim.z) {
+    for (int64_t i = blockIdx.y * static_cast<int64_t>(blockDim.y) + threadIdx.y; i < ho;
+         i += static_cast<int64_t>(gridDim.y) * blockDim.y) {
+      const int64_t r = 2 * i < h ? 2 * i : h - 2;  // rows r, r+1 (both h-1 past the edge)
+      float top[2], bot[2];
+      if (2 * j < w) {
+        load_row<float, 2>(x + (p * h + r) * w + 2 * j, top);
+        load_row<float, 2>(x + (p * h + r + 1) * w + 2 * j, bot);
+      } else {
+        top[0] = top[1] = x[(p * h + r) * w + w - 1];
+        bot[0] = bot[1] = x[(p * h + r + 1) * w + w - 1];
+      }
+      if (2 * i >= h) {
+        top[0] = bot[0];
+        top[1] = bot[1];
+      }
+      const Quad<float> d = haar_fwd_raw(top[0], top[1], bot[0], bot[1]);
+      const int64_t o = (p * ho + i) * wo + j;
+      ll[o] = mul_rn(d.ll, 0.25f);
+      const float band[3] = {mul_rn(d.lh, 0.25f), mul_rn(d.hl, 0.25f), mul_rn(d.hh, 0.25f)};
+      void* dst[3] = {lh, hl, hh};
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        if constexpr (MODE == kFloat)
+          static_cast<D*>(dst[s])[o] = band[s];
+        else
+          static_cast<D*>(dst[s])[o] = static_cast<D>(quantize(band[s], inv, qmax));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: dequantize (q + 0.5 sign q) * f32(step) — or take float bands as they
+// are — and invert one Haar level. Bands of (h, w) are read as if edge-padded
+// to the (hp, wp) grid; one thread per grid point writes its 2x2 outputs.
+// ---------------------------------------------------------------------------
+
+template <int MODE>
+__global__ void haar_level_inv_kernel(const float* __restrict__ ll, const void* __restrict__ lh,
+                                  const void* __restrict__ hl, const void* __restrict__ hh, int64_t planes,
+                                  int64_t h, int64_t w, int64_t hp, int64_t wp, float step,
+                                  float* __restrict__ out) {
+  using D = DetailT<MODE>;
+  const int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (j >= wp) return;
+  const int64_t jc = j < w ? j : w - 1;
+  for (int64_t p = blockIdx.z; p < planes; p += gridDim.z) {
+    for (int64_t i = blockIdx.y * static_cast<int64_t>(blockDim.y) + threadIdx.y; i < hp;
+         i += static_cast<int64_t>(gridDim.y) * blockDim.y) {
+      const int64_t s = (p * h + (i < h ? i : h - 1)) * w + jc;
+      const float l = ll[s];
+      const float b_lh = static_cast<float>(static_cast<const D*>(lh)[s]);
+      const float b_hl = static_cast<float>(static_cast<const D*>(hl)[s]);
+      const float b_hh = static_cast<float>(static_cast<const D*>(hh)[s]);
+      float o[4];
+      if constexpr (MODE == kFloat)
+        haar_inv(l, b_lh, b_hl, b_hh, o[0], o[1], o[2], o[3]);
+      else
+        haar_inv_dequant(l, bin_point(b_lh, 0.5f), bin_point(b_hl, 0.5f), bin_point(b_hh, 0.5f), step, step, step,
+                         o[0], o[1], o[2], o[3]);
+      float* dst = out + (p * 2 * hp + 2 * i) * (2 * wp) + 2 * j;
+      store_row<float, 2>(dst, o);
+      store_row<float, 2>(dst + 2 * wp, o + 2);
+    }
+  }
+}
+
 template <int M>
 void launch_icon_u8(const uint8_t* x, void* out, int f32_out, int64_t planes, int64_t ho, int64_t wo,
                     float scale, cudaStream_t st) {
@@ -364,6 +439,20 @@ void launch_idwt(const float* ll, void* out, int emit_u8, int mask16, int64_t pl
     auto* kernel = emit_u8 ? idwt_dequant_kernel<K, true, M> : idwt_dequant_kernel<K, false, M>;
     WICCA_LAUNCH(kernel, grid, dim3(kBlockX, kBlockY), st, ll, out, planes, hc, wc, offset, a);
   }
+}
+
+template <int MODE>
+void launch_dwt_level(const float* x, int64_t planes, int64_t h, int64_t w, int64_t ho, int64_t wo, float* ll,
+                      void* lh, void* hl, void* hh, float inv, float qmax, cudaStream_t st) {
+  WICCA_LAUNCH(haar_level_fwd_kernel<MODE>, grid_for(planes, ho, wo), dim3(kBlockX, kBlockY), st, x, planes, h, w, ho,
+               wo, ll, lh, hl, hh, inv, qmax);
+}
+
+template <int MODE>
+void launch_idwt_level(const float* ll, const void* lh, const void* hl, const void* hh, int64_t planes, int64_t h,
+                       int64_t w, int64_t hp, int64_t wp, float step, float* out, cudaStream_t st) {
+  WICCA_LAUNCH(haar_level_inv_kernel<MODE>, grid_for(planes, hp, wp), dim3(kBlockX, kBlockY), st, ll, lh, hl, hh,
+               planes, h, w, hp, wp, step, out);
 }
 
 }  // namespace
@@ -449,6 +538,40 @@ int wicca_idwt_dequant(const void* ll, const void* const* det, const int* is16, 
     case 1: launch_idwt<1>(llf, out, emit_u8, mask16, planes, hc, wc, offset, a, st); break;
     case 2: launch_idwt<2>(llf, out, emit_u8, mask16, planes, hc, wc, offset, a, st); break;
     default: launch_idwt<3>(llf, out, emit_u8, mask16, planes, hc, wc, offset, a, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: x (planes, h, w) float32, h and w even -> ll (planes, ho, wo) float32
+// and lh, hl, hh (planes, ho, wo), (ho, wo) >= (h/2, w/2) the tile-padded
+// band dims. mode: 0 int8 codes, 1 int16 codes, 2 float32 details.
+int wicca_dwt_level(const void* x, int64_t planes, int64_t h, int64_t w, int64_t ho, int64_t wo, void* ll,
+                    void* lh, void* hl, void* hh, int mode, float inv, float qmax, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* llf = static_cast<float*>(ll);
+  switch (mode) {
+    case kCodes8: launch_dwt_level<kCodes8>(xf, planes, h, w, ho, wo, llf, lh, hl, hh, inv, qmax, st); break;
+    case kCodes16: launch_dwt_level<kCodes16>(xf, planes, h, w, ho, wo, llf, lh, hl, hh, inv, qmax, st); break;
+    case kFloat: launch_dwt_level<kFloat>(xf, planes, h, w, ho, wo, llf, lh, hl, hh, inv, qmax, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: ll float32 and lh, hl, hh (planes, h, w), read edge-padded to
+// (hp, wp) -> out (planes, 2 hp, 2 wp) float32. mode as for K4; step is the
+// float32 dequantization step (unused for mode 2).
+int wicca_idwt_level(const void* ll, const void* lh, const void* hl, const void* hh, int64_t planes, int64_t h,
+                     int64_t w, int64_t hp, int64_t wp, int mode, float step, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* llf = static_cast<const float*>(ll);
+  float* o = static_cast<float*>(out);
+  switch (mode) {
+    case kCodes8: launch_idwt_level<kCodes8>(llf, lh, hl, hh, planes, h, w, hp, wp, step, o, st); break;
+    case kCodes16: launch_idwt_level<kCodes16>(llf, lh, hl, hh, planes, h, w, hp, wp, step, o, st); break;
+    case kFloat: launch_idwt_level<kFloat>(llf, lh, hl, hh, planes, h, w, hp, wp, step, o, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

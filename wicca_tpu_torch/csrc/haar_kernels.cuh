@@ -121,4 +121,14 @@ WICCA_HD void haar_inv_dequant(float ll, float u_lh, float u_hl, float u_hh, flo
   o11 = mul_rn(add_rn(rs_o, -rd_o), 0.5f);
 }
 
+// Invert one Haar level of float bands (no dequantization).
+WICCA_HD void haar_inv(float ll, float lh, float hl, float hh, float& o00, float& o01, float& o10, float& o11) {
+  const float rs_e = mul_rn(add_rn(ll, lh), 2.0f), rs_o = mul_rn(add_rn(ll, -lh), 2.0f);
+  const float rd_e = mul_rn(add_rn(hl, hh), 2.0f), rd_o = mul_rn(add_rn(hl, -hh), 2.0f);
+  o00 = mul_rn(add_rn(rs_e, rd_e), 0.5f);
+  o01 = mul_rn(add_rn(rs_o, rd_o), 0.5f);
+  o10 = mul_rn(add_rn(rs_e, -rd_e), 0.5f);
+  o11 = mul_rn(add_rn(rs_o, -rd_o), 0.5f);
+}
+
 }  // namespace wicca

@@ -1,7 +1,7 @@
-// The little of CUDA that haar_kernels.cu uses, emulated on the host, so that
-// a host C++ compiler builds the same kernels into a CPU library:
+// The little of CUDA that the kernel sources use, emulated on the host, so
+// that a host C++ compiler builds the same kernels into a CPU library:
 //
-//   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -x c++ haar_kernels.cu -o libhost.so
+//   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -x c++ haar_kernels.cu lifting_kernels.cu -o libhost.so
 //
 // The tests (tests/test_torch_kernels_host.py) hold that library against the
 // plain PyTorch twins, so the kernels' indexing and arithmetic are checked

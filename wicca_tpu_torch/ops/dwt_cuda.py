@@ -1,4 +1,4 @@
-"""The Haar main-path kernels and their plain PyTorch twins (counterpart of
+"""The Haar kernels and their plain PyTorch twins (counterpart of
 ``wicca_tpu/ops/dwt_pallas.py``).
 
 Each wrapper, its plain twin, and the TPU kernel it replaces
@@ -8,15 +8,22 @@ Each wrapper, its plain twin, and the TPU kernel it replaces
 * K2 :func:`dwt_multilevel_quant` / :func:`dwt_multilevel_quant_plain` —
   ``dwt_multilevel_quant_pallas``;
 * K3 :func:`idwt_multilevel_dequant` / :func:`idwt_multilevel_dequant_plain`
-  — ``idwt_multilevel_dequant_pallas``.
+  — ``idwt_multilevel_dequant_pallas``;
+* K4 :func:`dwt_level_quant` / :func:`dwt_level_quant_plain` —
+  ``dwt_level_quant_pallas``;
+* K5 :func:`idwt_level_dequant` / :func:`idwt_level_dequant_plain` —
+  ``idwt_level_dequant_pallas``.
 
 A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (``csrc/haar_kernels.cu``) or raises; nothing
 falls back. Each launch adds one to :data:`LAUNCHES`.
 
-The kernels work on semantic extents: for the pair-local Haar transform the
-JAX kernels' (512, 1024) tile padding never reaches a stored stream (the
-codec crops it away), so nothing here pads to tiles.
+K1-K3 work on semantic extents: for the pair-local Haar transform the JAX
+kernels' (512, 1024) tile padding never reaches a stored stream (the codec
+crops it away). K4 and K5 are public ops whose output shapes show that
+padding, so they reproduce it (:func:`_tiling`), as do the lifting kernels
+K6/K7 (:mod:`wicca_tpu_torch.ops.dwt53_cuda`), where the tiles also fix the
+lifting clamps.
 """
 
 from __future__ import annotations
@@ -28,13 +35,43 @@ import math
 import numpy as np
 import torch
 
-from wicca_tpu_torch.core.haar import _interleave
+from wicca_tpu_torch.core.haar import _interleave, idwt2_level
 from wicca_tpu_torch.ops import _build
 
 # launches per wrapper since the last reset_launches()
-LAUNCHES = {"icon": 0, "dwt_multilevel_quant": 0, "idwt_multilevel_dequant": 0}
+LAUNCHES = {"icon": 0, "dwt_multilevel_quant": 0, "idwt_multilevel_dequant": 0, "dwt_level_quant": 0,
+            "idwt_level_dequant": 0}
 
 _EXACT_ICON_LEVELS = 6  # int32 sums of 4**6 uint8 pixels stay below 2**24
+
+# The reference's tile caps: a dimension above its cap is edge-padded to a
+# multiple of it, which fixes the band shapes K4/K5 return and, for the
+# lifting kernels, where every level clamps.
+_TILE_H = 512
+_TILE_W = 1024
+
+
+def _pad_dim_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Edge-replicate one trailing axis up to a multiple of ``mult``."""
+    size = x.shape[axis]
+    extra = -size % mult
+    if extra == 0:
+        return x
+    idx = torch.clamp(torch.arange(size + extra, device=x.device), max=size - 1)
+    return x.index_select(axis, idx)
+
+
+def _tiled_extent(n: int, cap: int) -> tuple[int, int]:
+    """(padded extent, tile) of one dimension: one tile when ``n`` fits the
+    cap, else tiles of ``cap`` over ``n`` rounded up to a multiple of it."""
+    return (-(-n // cap) * cap, cap) if n > cap else (n, n)
+
+
+def _tiling(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """``x`` edge-padded to tile multiples, and the tile ``(th, tw)``."""
+    _, th = _tiled_extent(x.shape[-2], _TILE_H)
+    _, tw = _tiled_extent(x.shape[-1], _TILE_W)
+    return _pad_dim_to(_pad_dim_to(x, -2, th), -1, tw), th, tw
 
 
 def reset_launches() -> None:
@@ -365,3 +402,130 @@ def idwt_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: bo
     with torch.cuda.device(ll.device):
         lib = _build.library()
         return _launch_idwt(lib, ll, details, _band_steps3(steps), emit_u8, recon_offset, _stream(ll))
+
+
+# ---------------------------------------------------------------------------
+# K4: one Haar level + deadzone quantization (or float details)
+# ---------------------------------------------------------------------------
+
+
+def _level_mode(step: float, quantize: bool):
+    """(detail dtype, qmax, kernel mode): int8 codes, int16 codes, or float32."""
+    if not quantize:
+        return torch.float32, 0, 2
+    dt, qmax = _detail_dtype(step)
+    return dt, qmax, int(dt == torch.int16)
+
+
+def _check_level(x: torch.Tensor) -> None:
+    if x.ndim < 2 or x.numel() == 0:
+        raise ValueError(f"dwt_level_quant wants a non-empty (..., H, W) tensor, got {tuple(x.shape)}")
+    if x.shape[-2] % 2 or x.shape[-1] % 2:
+        raise ValueError("H and W must be even")
+
+
+def dwt_level_quant_plain(x: torch.Tensor, step: float = 1.0, quantize: bool = True):
+    """One Haar level over ``(..., H, W)`` (cast to float32), H and W even.
+    Returns ``(ll_f32, lh, hl, hh)`` of shape ``(..., H'/2, W'/2)``, where
+    H', W' are H, W edge-padded to tile multiples when above the caps.
+    Details are deadzone codes (int8 iff ``127.5 / step < 128``, else int16)
+    or, with ``quantize=False``, float32."""
+    _check_level(x)
+    xp, _, _ = _tiling(x.to(torch.float32))
+    ll, lh, hl, hh = (b * 0.25 for b in _haar_raw(xp))
+    if quantize:
+        dt, qmax, _ = _level_mode(step, quantize)
+        lh, hl, hh = (_quant_band(b, step, qmax, dt) for b in (lh, hl, hh))
+    return ll, lh, hl, hh
+
+
+def _launch_dwt_level(lib, x: torch.Tensor, step: float, quantize: bool, stream: int):
+    """K4's launch through ``lib`` on ``stream`` (``x`` float32, checked)."""
+    h, w = x.shape[-2], x.shape[-1]
+    ho, wo = _tiled_extent(h, _TILE_H)[0] // 2, _tiled_extent(w, _TILE_W)[0] // 2
+    dt, qmax, mode = _level_mode(step, quantize)
+    shape = tuple(x.shape[:-2]) + (ho, wo)
+    ll = torch.empty(shape, dtype=torch.float32, device=x.device)
+    bands = [torch.empty(shape, dtype=dt, device=x.device) for _ in range(3)]
+    rc = lib.wicca_dwt_level(x.data_ptr(), _planes(x.shape), h, w, ho, wo, ll.data_ptr(),
+                             *(b.data_ptr() for b in bands), mode, _inv(step) if quantize else 0.0, float(qmax),
+                             stream)
+    _build.check(rc, "dwt_level_quant")
+    LAUNCHES["dwt_level_quant"] += 1
+    return (ll, *bands)
+
+
+def dwt_level_quant(x: torch.Tensor, step: float = 1.0, quantize: bool = True):
+    """K4: :func:`dwt_level_quant_plain` in one launch; the tile padding is
+    an index clamp in the kernel."""
+    _check_level(x)
+    if x.device.type == "cpu":
+        return dwt_level_quant_plain(x, step, quantize)
+    x = contiguous_aligned(x.to(torch.float32))
+    _require_cuda("dwt_level_quant", x)
+    with torch.cuda.device(x.device):
+        return _launch_dwt_level(_build.library(), x, step, quantize, _stream(x))
+
+
+# ---------------------------------------------------------------------------
+# K5: dequantization (offset 0.5) + one inverse Haar level
+# ---------------------------------------------------------------------------
+
+
+def _check_idwt_level(ll: torch.Tensor, bands, quantize: bool) -> None:
+    if ll.ndim < 2 or ll.numel() == 0:
+        raise ValueError(f"ll must be a non-empty (..., h, w) tensor, got {tuple(ll.shape)}")
+    for b in bands:
+        if b.shape != ll.shape:
+            raise ValueError(f"bands must have the shape of ll {tuple(ll.shape)}, got {tuple(b.shape)}")
+    if quantize and any(b.dtype not in (torch.int8, torch.int16) or b.dtype != bands[0].dtype for b in bands):
+        raise ValueError("codes must all be int8 or all int16")
+
+
+def _level_grid(h: int, w: int) -> tuple[int, int]:
+    """The band grid K5 inverts: above half the tile caps, a multiple of them."""
+    return _tiled_extent(h, _TILE_H // 2)[0], _tiled_extent(w, _TILE_W // 2)[0]
+
+
+def idwt_level_dequant_plain(ll: torch.Tensor, lh, hl, hh, step: float = 1.0, quantize: bool = True):
+    """Inverse of :func:`dwt_level_quant_plain`: ``(..., h, w)`` bands,
+    edge-padded to multiples of (256, 512) when above them, dequantized as
+    ``(q + 0.5 sign q) * f32(step)`` (or taken as float32 with
+    ``quantize=False``) -> float32 ``(..., 2h', 2w')``."""
+    _check_idwt_level(ll, (lh, hl, hh), quantize)
+    hp, wp = _level_grid(ll.shape[-2], ll.shape[-1])
+
+    def prep(a):
+        return _pad_dim_to(_pad_dim_to(a, -2, hp), -1, wp)
+
+    ll = prep(ll.to(torch.float32))
+    if quantize:
+        return _idwt_level_dequant(ll, [prep(b) for b in (lh, hl, hh)], (step,) * 3, 0.5)
+    return idwt2_level(ll, *(prep(b.to(torch.float32)) for b in (lh, hl, hh)))
+
+
+def _launch_idwt_level(lib, ll: torch.Tensor, bands, step: float, quantize: bool, stream: int) -> torch.Tensor:
+    """K5's launch through ``lib`` on ``stream`` (inputs checked; ``ll`` and
+    float bands float32)."""
+    h, w = ll.shape[-2], ll.shape[-1]
+    hp, wp = _level_grid(h, w)
+    mode = int(bands[0].dtype == torch.int16) if quantize else 2
+    out = torch.empty(tuple(ll.shape[:-2]) + (2 * hp, 2 * wp), dtype=torch.float32, device=ll.device)
+    rc = lib.wicca_idwt_level(ll.data_ptr(), *(b.data_ptr() for b in bands), _planes(ll.shape), h, w, hp, wp,
+                              mode, _f32(step), out.data_ptr(), stream)
+    _build.check(rc, "idwt_level_dequant")
+    LAUNCHES["idwt_level_dequant"] += 1
+    return out
+
+
+def idwt_level_dequant(ll: torch.Tensor, lh, hl, hh, step: float = 1.0, quantize: bool = True) -> torch.Tensor:
+    """K5: :func:`idwt_level_dequant_plain` in one launch; the padding is an
+    index clamp in the kernel."""
+    _check_idwt_level(ll, (lh, hl, hh), quantize)
+    if ll.device.type == "cpu":
+        return idwt_level_dequant_plain(ll, lh, hl, hh, step, quantize)
+    ll = contiguous_aligned(ll.to(torch.float32))
+    bands = [contiguous_aligned(b if quantize else b.to(torch.float32)) for b in (lh, hl, hh)]
+    _require_cuda("idwt_level_dequant", ll, *bands)
+    with torch.cuda.device(ll.device):
+        return _launch_idwt_level(_build.library(), ll, bands, step, quantize, _stream(ll))
