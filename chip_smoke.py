@@ -15,7 +15,10 @@ Phases, each fatal on failure:
    uint8 emission; for K4/K5 shapes past the (512, 1024) tile caps, int8,
    int16 and float details; for K6/K7 shapes that cross tile seams in each
    direction, both filters, k = 1-3, uint8 and int32 input, int32 and uint8
-   output, partial passes (orig_k > k);
+   output, partial passes (orig_k > k); for K8/K9 the same seams, a batched
+   odd shape and a tile of one pair, both filters (cdf97, db2), k = 1-3,
+   uint8 and float32 input, steps 1.0, 0.75 and per band (hh x 1.5),
+   offsets 0.5 and 0.3, float32 and uint8 output, partial passes;
 3. the paths at full size on a 3x8704x6144 uint8 frame (bench.py's shape),
    each driven with the launch counters set to 0 just before and read just
    after:
@@ -30,15 +33,25 @@ Phases, each fatal on failure:
       window across tile seams equal to the frame's crop;
    c. the single-level ops: ``ops.dwt_level_quant`` -> ``idwt_level_dequant``
       on the frame as float32 at step 1.0, equal to the plain twins;
+   d. the lossy float-lifting path: ``encode(levels=5, QuantSpec(1.0),
+      wavelet='bior4.4', color='ict', chroma_gain=2.0)`` (the headline),
+      then ``decode(emit_u8=True)`` and ``decode_at_level(st, 2)``, the LL,
+      all 15 code planes (tile-padded shapes checked) and both decodes equal
+      to the plain path, PSNR > 30 dB; the same with ``bior4.4`` and ``db2``
+      at ``color='none'``; then (after the counters are read) a
+      ``decode_region`` window across tile seams equal to the crop of the
+      decode;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
    is one (CUDA events, median of ``--reps`` calls), the bytes each pass
    must move and its bound; the Haar and lossless depth-5 roundtrips called
    alone and back to back, with device-busy time and idle share; then the
-   ``kernels`` JSON line, whose times and bounds sum each kernel's passes
-   as often as phase 3 ran them (fatal unless their launches add up to
-   phase 3's count).
+   ``kernels`` JSON line (all nine kernels), whose times and bounds sum each
+   kernel's passes as often as phase 3 ran them (fatal unless their
+   launches add up to phase 3's count). The float path's ICT and its
+   inverse are plain PyTorch, as in the reference; the ``ict`` and ``none``
+   float roundtrips are timed alone and back to back.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a CUDA
 device the script exits non-zero before printing any result.
@@ -60,6 +73,7 @@ import torch
 H, W, LEVELS = 8704, 6144, 5
 HAAR_SOURCE = "wicca_tpu_torch/csrc/haar_kernels.cu"
 LIFTING_SOURCE = "wicca_tpu_torch/csrc/lifting_kernels.cu"
+FLOAT_SOURCE = "wicca_tpu_torch/csrc/lifting_float_kernels.cu"
 # kernel -> (TPU kernel it replaces, CUDA source, substring of its device symbol)
 KERNELS = {
     "icon": ("wicca_tpu/ops/dwt_pallas.py:171", HAAR_SOURCE, "icon_"),
@@ -69,6 +83,8 @@ KERNELS = {
     "idwt_level_dequant": ("wicca_tpu/ops/dwt_pallas.py:291", HAAR_SOURCE, "haar_level_inv_kernel"),
     "dwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:140", LIFTING_SOURCE, "lift_fwd_level_kernel"),
     "idwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:210", LIFTING_SOURCE, "lift_inv_level_kernel"),
+    "dwt97_multilevel_quant": ("wicca_tpu/ops/dwt97_pallas.py:155", FLOAT_SOURCE, "lift97_fwd_level_kernel"),
+    "idwt97_multilevel_dequant": ("wicca_tpu/ops/dwt97_pallas.py:220", FLOAT_SOURCE, "lift97_inv_level_kernel"),
 }
 # H100 SXM rate outside the tensor cores, operations/s (float32; the integer
 # lifting is counted against it too: every pass here is bound by bytes by
@@ -158,16 +174,17 @@ def device_ms(fn, reps: int, match: str | None = None, per_call: int | None = No
 
 
 def reset_all_launches() -> None:
-    from wicca_tpu_torch.ops import dwt53_cuda, dwt_cuda
+    from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
 
     dwt_cuda.reset_launches()
     dwt53_cuda.reset_launches()
+    dwt97_cuda.reset_launches()
 
 
 def launch_counts() -> dict:
-    from wicca_tpu_torch.ops import dwt53_cuda, dwt_cuda
+    from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
 
-    return {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES}
+    return {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES}
 
 
 def read_launches(names, path: str) -> dict:
@@ -262,38 +279,76 @@ def phase_kernels_vs_plain(rng, dev) -> int:
     return n + lifting_vs_plain(rng, dev)
 
 
+FLOAT_STEP_SETS = {
+    "1.0": lambda k: tuple(1.0 for _ in range(k)),
+    "0.75": lambda k: tuple(0.75 for _ in range(k)),
+    "hh1.5": lambda k: tuple((0.75 * 1.5**i, 0.75 * 1.5**i, 0.75 * 1.5**i * 1.5) for i in range(k)),
+}
+
+
 def lifting_vs_plain(rng, dev) -> int:
-    """K6/K7 against their twins: seams in each direction (1100 pads to a
-    multiple of 2**k, then to the tile multiple), batched leads, both
-    filters, k = 1-3, uint8 and int32 input, int32 and uint8 output, and
-    partial passes with orig_k > k."""
+    """K6/K7 and K8/K9 against their twins: shapes that cross tile seams in
+    each direction (1100 pads to a multiple of 2**k, then to the tile
+    multiple), a batched odd shape (and for K8/K9 a tile of one pair), both
+    filters of each, k = 1-3, uint8 input and int32 (K6) or float32 (K8)
+    input, partial passes with orig_k > k. K7 emits int32 and uint8; K8/K9
+    run three step sets and K9 emits float32 and uint8 at two offsets."""
     from wicca_tpu_torch.core.pad import pad_to_multiple
     from wicca_tpu_torch.ops import dwt53_cuda as lops
+    from wicca_tpu_torch.ops import dwt97_cuda as fops
 
+    # K6/K7 take a level count where K8/K9 take steps: their "steps" are k
+    # Nones, so that a partial pass slices both alike
+    families = {
+        "lifting": dict(
+            fwd=(lops.dwt53_multilevel, lops.dwt53_multilevel_plain),
+            call_fwd=lambda f, x, s, filt: f(x, len(s), filt),
+            inv=(lops.idwt53_multilevel, lops.idwt53_multilevel_plain),
+            call_inv=lambda f, ll, dets, s, emit_u8, off, orig_k, filt: f(ll, dets, len(s), emit_u8, orig_k=orig_k,
+                                                                         filt=filt),
+            filters=("legall5.3", "haar_int"), step_sets={"levels": lambda k: (None,) * k},
+            second=("i32", lambda shape: rng.integers(-300, 300, shape).astype(np.int32)),
+            inverses=((False, None), (True, None)), shapes=((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23))),
+        "float": dict(
+            fwd=(fops.dwt97_multilevel_quant, fops.dwt97_multilevel_quant_plain),
+            call_fwd=lambda f, x, s, filt: f(x, s, filt),
+            inv=(fops.idwt97_multilevel_dequant, fops.idwt97_multilevel_dequant_plain),
+            call_inv=lambda f, ll, dets, s, emit_u8, off, orig_k, filt: f(ll, dets, s, emit_u8, orig_k=orig_k,
+                                                                         filt=filt, recon_offset=off),
+            filters=("cdf97", "db2"), step_sets=FLOAT_STEP_SETS,
+            second=("f32", lambda shape: (rng.random(shape) * 300 - 20).astype(np.float32)),
+            inverses=((False, 0.5), (True, 0.5), (False, 0.3)),
+            shapes=((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23), (1, 2, 6))),
+    }
     n = 0
-    for shape in ((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23)):
-        u8 = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-        i32 = torch.from_numpy(rng.integers(-300, 300, shape).astype(np.int32)).to(dev)
-        for k in (1, 2, 3):
-            for src_name, src in (("u8", u8), ("i32", i32)):
-                x = pad_to_multiple(src, 1 << k).contiguous()
-                for filt in ("legall5.3", "haar_int"):
-                    what = f"lifting {filt} k={k} {src_name}{tuple(x.shape)}"
-                    ll, dets = lops.dwt53_multilevel(x, k, filt)
-                    pll, pdets = lops.dwt53_multilevel_plain(x, k, filt)
-                    check_equal(f"{what} ll", ll, pll)
-                    for i, (a, b) in enumerate(zip(flat(dets), flat(pdets))):
-                        check_equal(f"{what} band {i}", a, b)
-                    for emit_u8 in (False, True):
-                        check_equal(f"{what} inverse emit_u8={emit_u8}",
-                                    lops.idwt53_multilevel(ll, dets, k, emit_u8, filt=filt),
-                                    lops.idwt53_multilevel_plain(ll, dets, k, emit_u8, filt=filt))
-                        n += 1
-                    for kk in range(1, k):
-                        check_equal(f"{what} partial {kk} of {k}",
-                                    lops.idwt53_multilevel(ll, dets[k - kk:], kk, orig_k=k, filt=filt),
-                                    lops.idwt53_multilevel_plain(ll, dets[k - kk:], kk, orig_k=k, filt=filt))
-                        n += 1
+    for family, f in families.items():
+        (fwd, fwd_plain), (inv, inv_plain), call_fwd, call_inv = f["fwd"], f["inv"], f["call_fwd"], f["call_inv"]
+        second_name, make_second = f["second"]
+        for shape in f["shapes"]:
+            u8 = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+            second = torch.from_numpy(make_second(shape)).to(dev)
+            for k in (1, 2, 3):
+                for src_name, src in (("u8", u8), (second_name, second)):
+                    x = pad_to_multiple(src, 1 << k).contiguous()
+                    for filt in f["filters"]:
+                        for steps_name, make in f["step_sets"].items():
+                            s = make(k)
+                            what = f"{family} {filt} k={k} {src_name}{tuple(x.shape)} {steps_name}"
+                            ll, dets = call_fwd(fwd, x, s, filt)
+                            pll, pdets = call_fwd(fwd_plain, x, s, filt)
+                            check_equal(f"{what} ll", ll, pll)
+                            for i, (a, b) in enumerate(zip(flat(dets), flat(pdets))):
+                                check_equal(f"{what} band {i}", a, b)
+                            for emit_u8, off in f["inverses"]:
+                                check_equal(f"{what} inverse emit_u8={emit_u8} offset={off}",
+                                            call_inv(inv, ll, dets, s, emit_u8, off, None, filt),
+                                            call_inv(inv_plain, ll, dets, s, emit_u8, off, None, filt))
+                                n += 1
+                            for kk in range(1, k):
+                                args = (dets[k - kk:], s[k - kk:], False, 0.5, k, filt)
+                                check_equal(f"{what} partial {kk} of {k}", call_inv(inv, ll, *args),
+                                            call_inv(inv_plain, ll, *args))
+                                n += 1
     return n
 
 
@@ -357,37 +412,54 @@ def phase_main_path(frame_np, dev):
 LOSSLESS = (("legall5.3", "rct"), ("legall5.3", "none"), ("haar_int", "none"))  # the first is the headline
 
 
-def plain_lossless(x, wavelet, color):
-    """The lossless codec's pass structure on the plain twins: the stream's
-    LL and planes, the uint8 reconstruction and the level-2 decode."""
+def plain_cascade(x, fwd, inv, color=(None, None), pair_local=False):
+    """A codec's pass structure on the plain twins: the stream's LL and
+    planes, the uint8 reconstruction and the level-2 decode. ``fwd(ll, lvl,
+    k)`` runs a forward pass of k levels after level lvl; ``inv(rec, details,
+    lo, hi, orig_k, emit_u8)`` the inverse pass of levels hi..lo+1 cut from a
+    pass of orig_k levels; ``color`` is the pair of color transforms (None:
+    none, and the finest pass emits uint8 itself); ``pair_local`` (haar_int)
+    starts each pass from the semantic extent and crops the stream to it."""
     from wicca_tpu_torch.codec.pipeline import _crop_semantic, _pass_sizes
-    from wicca_tpu_torch.core.color import rct_fwd, rct_inv
-    from wicca_tpu_torch.ops import dwt53_cuda as lops
 
+    to_color, from_color = color
     h, w = x.shape[-2], x.shape[-1]
-    ll, details, lvl = (rct_fwd(x) if color == "rct" else x), [], 0
+    ll, details, lvl = (x if to_color is None else to_color(x)), [], 0
     for k in _pass_sizes(LEVELS):
-        if wavelet == "haar_int":  # pair-local: each pass starts from the semantic extent
+        if pair_local:
             ll = ll[..., : h >> lvl, : w >> lvl]
-        ll, dets = lops.dwt53_multilevel_plain(ll, k, wavelet)
+        ll, dets = fwd(ll, lvl, k)
         details.extend(dets)
         lvl += k
-    if wavelet == "haar_int":
+    if pair_local:
         ll, details = _crop_semantic(ll, details, h, w, LEVELS)
 
-    def inverse(target):
+    def inverse(target, emit_u8):
         rec, hi = ll, LEVELS
         for k in reversed(_pass_sizes(LEVELS)):
             if hi <= target:
                 break
             lo = max(hi - k, target)
             ch, cw = details[hi - 1][0].shape[-2:]
-            rec = lops.idwt53_multilevel_plain(rec[..., :ch, :cw], details[lo:hi], hi - lo, orig_k=k, filt=wavelet)
+            rec = inv(rec[..., :ch, :cw], details[lo:hi], lo, hi, k, emit_u8 and lo == 0 and from_color is None)
             hi = lo
-        rec = rct_inv(rec) if color == "rct" else rec
-        return rec[..., : h >> target, : w >> target]
+        rec = rec if from_color is None else from_color(rec)
+        rec = rec[..., : -(-h >> target), : -(-w >> target)]
+        return torch.clamp(rec, 0, 255).to(torch.uint8) if emit_u8 and rec.dtype != torch.uint8 else rec
 
-    return ll, details, torch.clamp(inverse(0), 0, 255).to(torch.uint8), inverse(2)
+    return ll, details, inverse(0, True), inverse(2, False)
+
+
+def plain_lossless(x, wavelet, color):
+    """The lossless codec on K6/K7's plain twins (``plain_cascade``)."""
+    from wicca_tpu_torch.core.color import rct_fwd, rct_inv
+    from wicca_tpu_torch.ops import dwt53_cuda as lops
+
+    return plain_cascade(
+        x, lambda ll, lvl, k: lops.dwt53_multilevel_plain(ll, k, wavelet),
+        lambda rec, dets, lo, hi, orig_k, emit_u8: lops.idwt53_multilevel_plain(rec, dets, hi - lo, emit_u8,
+                                                                                orig_k=orig_k, filt=wavelet),
+        (rct_fwd, rct_inv) if color == "rct" else (None, None), pair_local=wavelet == "haar_int")
 
 
 def phase_lossless(x):
@@ -447,6 +519,69 @@ def phase_level(x):
     return launches, check_pairs(pairs)
 
 
+FLOAT = (("bior4.4", "ict", 2.0), ("bior4.4", "none", 1.0), ("db2", "none", 1.0))  # the first is the headline
+
+
+def plain_float(x, wavelet, color, gain, spec):
+    """The lossy float codec on K8/K9's plain twins (``plain_cascade``; x is
+    already a multiple of 2**LEVELS)."""
+    from wicca_tpu_torch.core.color import ict_fwd, ict_inv
+    from wicca_tpu_torch.ops import dwt97_cuda as fops
+
+    filt = "db2" if wavelet == "db2" else "cdf97"
+    fwd_gain, inv_gain = (torch.tensor(g, dtype=torch.float32, device=x.device).reshape(3, 1, 1)
+                          for g in ((1.0, 1.0 / gain, 1.0 / gain), (1.0, gain, gain)))
+
+    def steps(lo, hi):
+        return tuple(spec.band_steps(i + 1) for i in range(lo, hi))
+
+    return plain_cascade(
+        x, lambda ll, lvl, k: fops.dwt97_multilevel_quant_plain(ll, steps(lvl, lvl + k), filt),
+        lambda rec, dets, lo, hi, orig_k, emit_u8: fops.idwt97_multilevel_dequant_plain(
+            rec, dets, steps(lo, hi), emit_u8, orig_k=orig_k, filt=filt),
+        (lambda t: ict_fwd(t) * fwd_gain, lambda t: ict_inv(t * inv_gain)) if color == "ict" else (None, None))
+
+
+def phase_float(x):
+    """Phase 3d: the depth-5 lossy roundtrip and decode_at_level(st, 2) of
+    each FLOAT configuration at QuantSpec(1.0), held to the plain path, with
+    PSNR > 30 dB. Returns each configuration's launch counts, the largest
+    difference per kernel (0 when all equal) and each PSNR."""
+    from wicca_tpu_torch import QuantSpec, decode, decode_at_level, decode_region, encode, psnr
+
+    spec = QuantSpec(base_step=1.0)
+    launches, max_abs_err, psnrs = {}, {"dwt97_multilevel_quant": 0.0, "idwt97_multilevel_dequant": 0.0}, {}
+    window = (H // 2 - 300, H // 2 + 300, W // 2 - 700, W // 2 + 700)  # crosses tile seams both ways
+    for wavelet, color, gain in FLOAT:
+        what = f"float {wavelet} color={color} chroma_gain={gain}"
+        reset_all_launches()
+        st = encode(x, levels=LEVELS, spec=spec, wavelet=wavelet, color=color, chroma_gain=gain)
+        rec = decode(st, emit_u8=True)
+        part = decode_at_level(st, 2)
+        torch.cuda.synchronize()
+        launches[(wavelet, color)] = read_launches(("dwt97_multilevel_quant", "idwt97_multilevel_dequant"), what)
+        r0, r1, c0, c1 = window
+        check_equal(f"{what}: decode_region{window} vs the decode", decode_region(st, *window, emit_u8=True),
+                    rec[..., r0:r1, c0:c1])
+        if (H, W) == (8704, 6144):  # pass 2's 1088 input rows pad to 1536
+            shapes = (tuple(st.ll.shape), tuple(st.details[3][0].shape), tuple(st.details[4][0].shape))
+            if shapes != ((3, 384, 192), (3, 768, 384), (3, 384, 192)):
+                raise AssertionError(f"{what}: stored shapes {shapes}")
+        pll, pdets, prec, ppart = plain_float(x, wavelet, color, gain, spec)
+        err = check_pairs({
+            "dwt97_multilevel_quant": [(f"{what}: ll", st.ll, pll)] + [
+                (f"{what}: plane {i}", a, b) for i, (a, b) in enumerate(zip(flat(st.details), flat(pdets)))],
+            "idwt97_multilevel_dequant": [(f"{what}: reconstruction", rec, prec),
+                                          (f"{what}: decode_at_level 2", part, ppart)],
+        })
+        for name, e in err.items():
+            max_abs_err[name] = max(max_abs_err[name], e)
+        psnrs[(wavelet, color)] = float(psnr(rec, x))
+        if not psnrs[(wavelet, color)] > 30.0:
+            raise AssertionError(f"{what}: roundtrip PSNR {psnrs[(wavelet, color)]} dB <= 30")
+    return launches, max_abs_err, psnrs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times at the main-path shapes
 # ---------------------------------------------------------------------------
@@ -456,6 +591,13 @@ def lifting_ops(n: int, k: int) -> float:
     """Integer operations of k lifting levels over n input samples: about 8
     per sample per level (two lifting steps in each direction)."""
     return 8 * n * sum(0.25**i for i in range(k))
+
+
+def float_lifting_ops(n: int, k: int) -> float:
+    """Float operations of k 9/7 levels over n input samples: about 16 per
+    sample per level (four lifting steps and the scaling in each direction,
+    and the quantizer)."""
+    return 16 * n * sum(0.25**i for i in range(k))
 
 
 def time_passes(passes, reps, rate):
@@ -570,6 +712,57 @@ def lifting_passes(x):
     ]
 
 
+def float_passes(x):
+    """K8/K9 at the lossy float path's shapes. The headline (bior4.4, ict,
+    chroma_gain 2) run is encode, decode and decode_at_level(st, 2): K8 runs
+    its two passes once (from float32: the ICT comes first); K9 runs levels
+    5-4 twice, levels 3-1 to float32 once (the inverse ICT follows) and the
+    partial level 3 of 3 once. The uint8 regimes of color='none' are timed
+    beside them."""
+    from wicca_tpu_torch import QuantSpec
+    from wicca_tpu_torch.core.color import ict_fwd
+    from wicca_tpu_torch.ops import dwt97_cuda as fops
+
+    spec = QuantSpec(base_step=1.0)
+    s13 = tuple(spec.band_steps(i) for i in (1, 2, 3))
+    s45 = tuple(spec.band_steps(i) for i in (4, 5))
+    yuv = ict_fwd(x) * torch.tensor([1.0, 0.5, 0.5], dtype=torch.float32, device=x.device).reshape(3, 1, 1)
+    ll3, d13 = fops.dwt97_multilevel_quant(yuv, s13)
+    ll5, d45 = fops.dwt97_multilevel_quant(ll3, s45)
+    full = fops.idwt97_multilevel_dequant(ll5, d45, s45)
+    rec3 = full[..., : ll3.shape[-2], : ll3.shape[-1]].contiguous()
+    rec = fops.idwt97_multilevel_dequant(rec3, d13, s13)
+    part = fops.idwt97_multilevel_dequant(rec3, d13[2:], s13[2:], orig_k=3)
+    ull3, ud13 = fops.dwt97_multilevel_quant(x, s13)
+    urec = fops.idwt97_multilevel_dequant(ull3, ud13, s13, emit_u8=True)
+    return [
+        ("dwt97_multilevel_quant", "levels 1-3 from f32 (`ict`)", lambda: fops.dwt97_multilevel_quant(yuv, s13),
+         lambda: fops.dwt97_multilevel_quant_plain(yuv, s13), nbytes(yuv, ll3, *flat(d13)),
+         float_lifting_ops(yuv.numel(), 3), 1),
+        ("dwt97_multilevel_quant", "levels 4-5 from f32", lambda: fops.dwt97_multilevel_quant(ll3, s45),
+         lambda: fops.dwt97_multilevel_quant_plain(ll3, s45), nbytes(ll3, ll5, *flat(d45)),
+         float_lifting_ops(ll3.numel(), 2), 1),
+        ("dwt97_multilevel_quant", "levels 1-3 from u8 (`none`)", lambda: fops.dwt97_multilevel_quant(x, s13),
+         lambda: fops.dwt97_multilevel_quant_plain(x, s13), nbytes(x, ull3, *flat(ud13)),
+         float_lifting_ops(x.numel(), 3), 0),
+        ("idwt97_multilevel_dequant", "levels 5-4 to f32",
+         lambda: fops.idwt97_multilevel_dequant(ll5, d45, s45),
+         lambda: fops.idwt97_multilevel_dequant_plain(ll5, d45, s45), nbytes(ll5, full, *flat(d45)),
+         float_lifting_ops(full.numel(), 2), 2),
+        ("idwt97_multilevel_dequant", "levels 3-1 to f32 (`ict`)", lambda: fops.idwt97_multilevel_dequant(rec3, d13, s13),
+         lambda: fops.idwt97_multilevel_dequant_plain(rec3, d13, s13), nbytes(rec3, rec, *flat(d13)),
+         float_lifting_ops(rec.numel(), 3), 1),
+        ("idwt97_multilevel_dequant", "levels 3-1 to u8 (`none`)",
+         lambda: fops.idwt97_multilevel_dequant(ull3, ud13, s13, emit_u8=True),
+         lambda: fops.idwt97_multilevel_dequant_plain(ull3, ud13, s13, emit_u8=True),
+         nbytes(ull3, urec, *flat(ud13)), float_lifting_ops(urec.numel(), 3), 0),
+        ("idwt97_multilevel_dequant", "level 3 of 3, orig_k (`decode_at_level`)",
+         lambda: fops.idwt97_multilevel_dequant(rec3, d13[2:], s13[2:], orig_k=3),
+         lambda: fops.idwt97_multilevel_dequant_plain(rec3, d13[2:], s13[2:], orig_k=3),
+         nbytes(rec3, part, *flat(d13[2:])), float_lifting_ops(part.numel(), 1), 1),
+    ]
+
+
 def roundtrip_times(fn, reps):
     """A roundtrip called alone and back to back, its device-busy time and
     the idle shares."""
@@ -589,7 +782,7 @@ def phase_times(x, launches, max_abs_err, reps, rate):
     from wicca_tpu_torch import HaarCoder, QuantSpec, decode, encode
     from wicca_tpu_torch.ops import dwt_cuda as ops
 
-    rows = time_passes(haar_passes(x) + level_passes(x) + lifting_passes(x), reps, rate)
+    rows = time_passes(haar_passes(x) + level_passes(x) + lifting_passes(x) + float_passes(x), reps, rate)
     library = {"icon": time_ms(lambda: torch.nn.functional.avg_pool2d(x.float(), 32), reps)}
     kernels = []
     for name, (replaces, source, _) in KERNELS.items():
@@ -625,6 +818,13 @@ def phase_times(x, launches, max_abs_err, reps, rate):
     e2e["lossless_rct_roundtrip_bytes"] = sum(r["bytes"] for r in rows
                                               if r["kernel"] in ("dwt53_multilevel", "idwt53_multilevel") and r["runs"]
                                               and "decode_at_level" not in r["part"])
+    for color, gain in (("ict", 2.0), ("none", 1.0)):
+        e2e[f"float_{color}_roundtrip_depth5"] = roundtrip_times(
+            lambda c=color, g=gain: decode(encode(x, levels=LEVELS, spec=spec, wavelet="bior4.4", color=c,
+                                                  chroma_gain=g), emit_u8=True), reps)
+    # one K8 pass each of levels 1-3 and 4-5, one K9 pass each of 5-4 and 3-1
+    e2e["float_ict_roundtrip_bytes"] = sum(r["bytes"] for r in rows if r["kernel"] in (
+        "dwt97_multilevel_quant", "idwt97_multilevel_dequant") and r["runs"] and "decode_at_level" not in r["part"])
     return rows, kernels, e2e
 
 
@@ -683,9 +883,19 @@ def main(argv=None) -> int:
     launches.update(level_launches)
     max_abs_err.update(err)
 
+    t0 = time.perf_counter()
+    float_launches, err, psnrs = phase_float(x)
+    for (wavelet, color), counts in float_launches.items():
+        print(f"phase 3d: lossy {wavelet} color={color} depth {LEVELS}: LL, {3 * LEVELS} planes, decode(emit_u8) "
+              f"and decode_at_level(2) equal the plain path; PSNR {psnrs[(wavelet, color)]:.4f} dB; "
+              f"launches {json.dumps(counts)}", flush=True)
+    print(f"phase 3d: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches.update(float_launches[(FLOAT[0][0], FLOAT[0][1])])
+    max_abs_err.update(err)
+
     rows, kernels, e2e = phase_times(x, launches, max_abs_err, args.reps, rate)
     for r in rows:
-        print(f"  {r['kernel']:<24} {r['part']:<31} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
+        print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e}))

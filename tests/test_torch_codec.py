@@ -1,7 +1,7 @@
 """The port's Haar codec against ``wicca_tpu.codec.pipeline`` on the CPU:
 LL, every code plane (values and dtype), stored shapes, float32 and uint8
 reconstructions, over depths 1-6 and the quantizer settings, plus the
-stream helpers. Float input, tile padding, R-D divisors and streams decoded
+stream helpers and the options the earlier slices left out. Float input, tile padding, R-D divisors and streams decoded
 across the two packages are in ``test_torch_codec_streams.py``. Tolerance 0
 throughout."""
 
@@ -94,19 +94,34 @@ def test_psnr_of_roundtrip():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(wavelet="cdf97"), dict(wavelet="db2"), dict(color="ict"), dict(bit_depth=12),
+    dict(wavelet="cdf97"), dict(wavelet="db2"), dict(color="ict"), dict(bit_depth=12, wavelet="legall5.3"),
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tpipe.encode(torch.zeros((3, 16, 16), dtype=torch.uint8), levels=2, **kw)
+    """These options raised until the float codec (K8/K9, ICT) and the
+    9-16-bit path were ported; now each encodes and decodes: stream fields,
+    stored shapes and dtypes as JAX's; the lossy reconstructions within 40
+    grey levels of the input, the lossless 12-bit one exact (the float
+    codec's tolerance against JAX: test_torch_codec_float.py)."""
+    x = _u8((3, 16, 16), seed=13)
+    ts = tpipe.encode(torch.from_numpy(x), levels=2, **kw)
+    js = jpipe.encode(x, levels=2, **kw)
+    assert (ts.wavelet, ts.color, ts.layout, ts.bit_depth) == (js.wavelet, js.color, js.layout, js.bit_depth)
+    for t, j in zip([ts.ll] + [b for bands in ts.details for b in bands],
+                    [js.ll] + [b for bands in js.details for b in bands]):
+        assert t.numpy().dtype == np.asarray(j).dtype and t.shape == j.shape
+    got, want = tpipe.decode(ts, emit_u8=True).numpy(), np.asarray(jpipe.decode(js, emit_u8=True))
+    assert got.dtype == want.dtype and got.shape == want.shape == x.shape
+    assert np.abs(got.astype(int) - x.astype(int)).max() <= (0 if "bit_depth" in kw else 40)
 
 
 def test_unported_streams_raise():
-    with pytest.raises(NotImplementedError):
+    """ROI streams (Queue 1 item 7d) still raise; Haar has no 9-16-bit path
+    in either package."""
+    with pytest.raises(ValueError, match="lifting wavelet"):
         tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint16), levels=2)
     ts = tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint8), levels=2)
-    for change in (dict(roi_shift=3), dict(wavelet="db2"), dict(color="ict"), dict(bit_depth=16)):
-        with pytest.raises(NotImplementedError):
+    for change in (dict(roi_shift=3), dict(roi_shift=2, wavelet="db2"), dict(roi_shift=1, bit_depth=16)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
             tpipe.decode(dataclasses.replace(ts, **change))
     with pytest.raises(ValueError):
         tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint8), levels=2, color="yuv")

@@ -14,7 +14,7 @@ import wicca_tpu_torch
 from wicca_tpu_torch import HaarCoder, QuantSpec, decode, decode_at_level, encode, ops
 from wicca_tpu_torch._device import resolve_device
 from wicca_tpu_torch.codec.interop import stream_from_arrays
-from wicca_tpu_torch.ops import dwt53_cuda, dwt_cuda
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -39,7 +39,7 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
     assert res["bad"] == []
     for name in ("wicca_tpu_torch.ops.dwt_cuda", "wicca_tpu_torch.ops._build", "wicca_tpu_torch.codec.interop",
                  "wicca_tpu_torch.coder", "wicca_tpu_torch.core.haar", "wicca_tpu_torch.ops.dwt53_cuda",
-                 "wicca_tpu_torch.core.lifting", "wicca_tpu_torch.core.color"):
+                 "wicca_tpu_torch.core.lifting", "wicca_tpu_torch.core.color", "wicca_tpu_torch.ops.dwt97_cuda"):
         assert name in res["modules"]
 
 
@@ -78,6 +78,7 @@ def test_tensor_runs_where_it_lies():
 def test_cpu_runs_leave_launch_counters_at_zero():
     dwt_cuda.reset_launches()
     dwt53_cuda.reset_launches()
+    dwt97_cuda.reset_launches()
     img = np.random.default_rng(0).integers(0, 256, (3, 40, 56), dtype=np.uint8)
     stream = encode(img, levels=5, spec=QuantSpec(0.75), device="cpu")
     decode(stream, emit_u8=True)
@@ -87,10 +88,16 @@ def test_cpu_runs_leave_launch_counters_at_zero():
     decode(lossless, emit_u8=True)
     decode_at_level(lossless, 2)
     ops.idwt_level_dequant(*ops.dwt_level_quant(torch.from_numpy(img).float()))
+    lossy = encode(img, levels=4, wavelet="bior4.4", color="ict", chroma_gain=2.0, device="cpu")
+    decode(lossy, emit_u8=True)
+    decode_at_level(lossy, 2)
+    decode(encode(img, levels=2, wavelet="db2", device="cpu"), emit_u8=True)
     assert set(dwt_cuda.LAUNCHES) == {"icon", "dwt_multilevel_quant", "idwt_multilevel_dequant", "dwt_level_quant",
                                       "idwt_level_dequant"}
     assert set(dwt53_cuda.LAUNCHES) == {"dwt53_multilevel", "idwt53_multilevel"}
+    assert set(dwt97_cuda.LAUNCHES) == {"dwt97_multilevel_quant", "idwt97_multilevel_dequant"}
     assert not any(dwt_cuda.LAUNCHES.values()) and not any(dwt53_cuda.LAUNCHES.values())
+    assert not any(dwt97_cuda.LAUNCHES.values())
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
@@ -152,3 +159,11 @@ def test_kernels_equal_plain_twins_on_the_card():
         got = dwt53_cuda.idwt53_multilevel(ll, dets, 3, emit_u8=True, filt=filt)
         assert torch.equal(got, dwt53_cuda.idwt53_multilevel_plain(ll, dets, 3, emit_u8=True, filt=filt))
         assert torch.equal(got, x)
+    for filt in ("cdf97", "db2"):
+        ll, dets = dwt97_cuda.dwt97_multilevel_quant(x, steps, filt)
+        pll, pdets = dwt97_cuda.dwt97_multilevel_quant_plain(x, steps, filt)
+        assert torch.equal(ll, pll) and all(torch.equal(a, b) for da, db in zip(dets, pdets) for a, b in zip(da, db))
+        for emit_u8 in (False, True):
+            got = dwt97_cuda.idwt97_multilevel_dequant(ll, dets, steps, emit_u8, filt=filt, recon_offset=0.3)
+            assert torch.equal(got, dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets, steps, emit_u8, filt=filt,
+                                                                                recon_offset=0.3))

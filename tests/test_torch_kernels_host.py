@@ -14,7 +14,7 @@ import torch
 
 from wicca_tpu_torch.core.pad import pad_to_multiple
 from wicca_tpu_torch.ops import _build
-from wicca_tpu_torch.ops import dwt53_cuda
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda
 from wicca_tpu_torch.ops import dwt_cuda as ops
 
 STEP_SETS = {
@@ -23,6 +23,16 @@ STEP_SETS = {
     "hh1.5": lambda k: tuple((0.75 * 1.5**i, 0.75 * 1.5**i, 0.75 * 1.5**i * 1.5) for i in range(k)),
     "mixed": lambda k: tuple((2.5, 2.5, 3.75) if i % 2 else (0.3, 0.3, 0.45) for i in range(k)),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are small: torch's intra-op threads cost far more
+    than they save when the suite's workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -150,3 +160,62 @@ def test_lossless_pass_structure_matches_plain(host_lib):
     _equal(rec3, prec3)
     _equal(dwt53_cuda._launch_inv(host_lib, rec3, d13[2:], 1, False, 3, "legall5.3", 0),
            dwt53_cuda.idwt53_multilevel_plain(prec3, pd13[2:], 1, orig_k=3))
+
+
+FLOAT_STEPS = {  # per k: one of the step sets the codec meets, by filter
+    "cdf97": lambda k: tuple((0.75 * 1.5**i, 0.75 * 1.5**i, 1.125 * 1.5**i) for i in range(k)),
+    "db2": lambda k: tuple((1.0, 1.0, 1.0) if i % 2 else (0.3, 0.3, 0.45) for i in range(k)),
+}
+
+
+@pytest.mark.parametrize("src", ["u8", "f32"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("filt", ["cdf97", "db2"])
+def test_float_lifting_kernels_match_plain(host_lib, filt, k, src):
+    """K8 and K9 on shapes that cross the tile seams in each direction, a
+    batched odd one, and tiles of one pair (every clamp collapses onto it);
+    full and partial (orig_k > k) inverse passes, float32 and uint8 out, two
+    reconstruction offsets."""
+    rng = np.random.default_rng(10 + k)
+    steps = dwt97_cuda._band_steps3(FLOAT_STEPS[filt](k))
+    for shape in [(2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23), (1, 2, 6)]:
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8) if src == "u8"
+                             else (rng.random(shape) * 300 - 20).astype(np.float32))
+        x = pad_to_multiple(x, 1 << k).contiguous()
+        ll, dets = dwt97_cuda._launch_fwd(host_lib, x, steps, filt, 0)
+        pll, pdets = dwt97_cuda.dwt97_multilevel_quant_plain(x, steps, filt)
+        _equal(ll, pll)
+        for bands, pbands in zip(dets, pdets):
+            for a, b in zip(bands, pbands):
+                _equal(a, b)
+        for emit_u8, off in ((False, 0.5), (True, 0.5), (False, 0.3)):
+            _equal(dwt97_cuda._launch_inv(host_lib, ll, dets, steps, emit_u8, k, filt, off, 0),
+                   dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets, steps, emit_u8, k, filt, off))
+        for kk in range(1, k):
+            _equal(dwt97_cuda._launch_inv(host_lib, ll, dets[k - kk:], steps[k - kk:], False, k, filt, 0.5, 0),
+                   dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets[k - kk:], steps[k - kk:], False, k, filt))
+
+
+def test_float_pass_structure_matches_plain(host_lib):
+    """Depth 5 as the lossy codec runs it: levels 1-3 from uint8 (rows
+    padded to 1536 by the tiling), 4-5 from the float32 LL, the inverse
+    passes with the finest emitting uint8, and a partial pass as
+    decode_at_level runs it."""
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (3, 1088, 96), dtype=np.uint8))
+    s13 = dwt97_cuda._band_steps3(tuple((1.0 * 1.5**i,) * 3 for i in range(3)))
+    s45 = dwt97_cuda._band_steps3(tuple((1.0 * 1.5**i,) * 3 for i in range(3, 5)))
+    ll3, d13 = dwt97_cuda._launch_fwd(host_lib, x, s13, "cdf97", 0)
+    assert ll3.shape == (3, 192, 12)
+    ll5, d45 = dwt97_cuda._launch_fwd(host_lib, ll3, s45, "cdf97", 0)
+    assert ll5.shape == (3, 48, 3) and d45[0][0].shape == (3, 96, 6)
+    rec3 = dwt97_cuda._launch_inv(host_lib, ll5, d45, s45, False, 2, "cdf97", 0.5, 0)
+    out = dwt97_cuda._launch_inv(host_lib, rec3, d13, s13, True, 3, "cdf97", 0.5, 0)
+    pll3, pd13 = dwt97_cuda.dwt97_multilevel_quant_plain(x, s13)
+    pll5, pd45 = dwt97_cuda.dwt97_multilevel_quant_plain(pll3, s45)
+    _equal(ll5, pll5)
+    prec3 = dwt97_cuda.idwt97_multilevel_dequant_plain(pll5, pd45, s45)
+    _equal(rec3, prec3)
+    _equal(out, dwt97_cuda.idwt97_multilevel_dequant_plain(prec3, pd13, s13, emit_u8=True))
+    _equal(dwt97_cuda._launch_inv(host_lib, prec3, d13[2:], s13[2:], False, 3, "cdf97", 0.5, 0),
+           dwt97_cuda.idwt97_multilevel_dequant_plain(prec3, pd13[2:], s13[2:], orig_k=3))
+    assert float((out[..., :1088, :].double() - x.double()).abs().mean()) < 2.0

@@ -2,10 +2,12 @@
 
 So far it holds the Haar icon path, the 8-bit Haar codec, the lossless
 8-bit codec (LeGall 5/3 and integer Haar lifting, the reversible color
-transform), progressive and region decode, the lifting transforms and the
-single-level Haar ops. Their device work runs in hand-written CUDA kernels
-(``csrc/``), built with nvcc at first use; every kernel has a plain PyTorch
-twin that the CPU runs.
+transform), the lossy float codec (CDF 9/7 and db2 lifting, the
+irreversible color transform), the whole-image lifting path of registered
+wavelets and of 9-16-bit samples, progressive and region decode, the
+lifting transforms and the single-level Haar ops. Their device work runs in
+hand-written CUDA kernels (``csrc/``, K1-K9), built with nvcc at first use;
+every kernel has a plain PyTorch twin that the CPU runs.
 
 Device rule: a tensor input runs where it lies; a numpy input goes to
 ``device="cuda"`` unless the caller passes ``device="cpu"``; with no card

@@ -1,5 +1,6 @@
-"""The 8-bit image codec on PyTorch: Haar (lossy) and the lossless integer
-lifting path, with progressive and region decode and stream interop."""
+"""The image codec on PyTorch: Haar (lossy), the lossless integer lifting
+path, the lossy float lifting path (CDF 9/7, db2, ICT) and the 9-16-bit
+path, with progressive and region decode and stream interop."""
 
 from wicca_tpu_torch.codec.pipeline import (
     CodeStream,

@@ -1,11 +1,19 @@
-"""The 8-bit image codec (counterpart of ``wicca_tpu/codec/pipeline.py``):
+"""The image codec (counterpart of ``wicca_tpu/codec/pipeline.py``):
 
 * ``wavelet='haar'``: fused DWT + deadzone quantization (kernel K2) and
   fused dequantization + inverse DWT (K3), lossy;
 * ``wavelet='legall5.3'`` (alias ``'cdf53'``) or ``'haar_int'``, optionally
   after the reversible color transform (``color='rct'``): the lossless
   JPEG2000-style path on tile-local integer lifting (K6/K7); ``decode``
-  returns the input bit for bit.
+  returns the input bit for bit;
+* ``wavelet='bior4.4'``/``'cdf97'`` (CDF 9/7) or ``'db2'``, optionally after
+  the irreversible color transform (``color='ict'``, with ``chroma_gain``):
+  the lossy JPEG2000-style path on tile-local float lifting with the
+  deadzone quantizer fused in (K8/K9);
+* a registered wavelet, and every lifting wavelet at ``bit_depth`` 9-16:
+  whole-image lifting (``layout='global'``) in plain PyTorch, as the
+  reference leaves it to XLA; at high bit depth the codes are int32, and
+  uint16 input roundtrips bit for bit on the integer wavelets.
 
 ``encode`` -> :class:`CodeStream`; ``decode`` -> reconstructed image,
 cropped to the original dims; ``decode_at_level`` (resolution
@@ -13,7 +21,10 @@ scalability), ``decode_region`` (spatial random access) and
 ``icon_from_stream`` read only part of a stream.
 
 Every level partition, shape and rounding step follows the JAX package, so
-streams cross between the two (:mod:`wicca_tpu_torch.codec.interop`).
+streams cross between the two (:mod:`wicca_tpu_torch.codec.interop`). The
+float wavelets agree with it within the tolerance stated in
+``tests/test_torch_codec_float.py``: the reference's XLA build contracts
+some lifting products into fused multiply-adds, depending on the shape.
 """
 
 from __future__ import annotations
@@ -24,11 +35,12 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch._device import as_tensor
-from wicca_tpu_torch.core.color import rct_fwd, rct_inv
-from wicca_tpu_torch.core.lifting import idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
+from wicca_tpu_torch.core.color import ict_fwd, ict_inv, rct_fwd, rct_inv
+from wicca_tpu_torch.core.lifting import dwt2_level_lifting, idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
-from wicca_tpu_torch.core.quant import QuantSpec
+from wicca_tpu_torch.core.quant import QuantSpec, dequantize_deadzone, quantize_deadzone
 from wicca_tpu_torch.ops.dwt53_cuda import dwt53_multilevel, idwt53_multilevel
+from wicca_tpu_torch.ops.dwt97_cuda import dwt97_multilevel_quant, idwt97_multilevel_dequant
 from wicca_tpu_torch.ops.dwt_cuda import (
     _TILE_H,
     _TILE_W,
@@ -38,13 +50,10 @@ from wicca_tpu_torch.ops.dwt_cuda import (
 )
 
 # where each missing piece of the codec is scheduled (ROADMAP.md, Queue 1)
-_LATER = {
-    "wavelet": "Queue 1 item 7b (slice 3: the float lifting wavelets on kernels K8/K9)",
-    "color": "Queue 1 item 7b (slice 3: the ict color transform)",
-    "bit_depth": "Queue 1 item 7c (the 9-16-bit int32 path)",
-    "roi": "Queue 1 item 7d (codec/roi.py)",
-}
-_PORTED_WAVELETS = ("haar", "legall5.3", "cdf53", "haar_int")
+_LATER = {"roi": "Queue 1 item 7d (codec/roi.py)"}
+# wavelet -> filter of the tile-local lifting kernels: K6/K7, K8/K9
+_INT_TILED = {"legall5.3": "legall5.3", "cdf53": "legall5.3", "haar_int": "haar_int"}
+_FLOAT_TILED = {"bior4.4": "cdf97", "cdf97": "cdf97", "db2": "db2"}
 
 
 def _not_yet(what: str, value) -> NotImplementedError:
@@ -86,13 +95,16 @@ def _crop_semantic(ll, details, h_sem: int, w_sem: int, levels: int):
 class CodeStream:
     """Multi-level representation, with the fields of the JAX package's
     ``CodeStream``. ``details[k]`` = (lh, hl, hh) codes of level k+1 (finest
-    first): int8/int16 deadzone codes for haar, exact int16 coefficients for
-    the integer wavelets. ``ll`` = coarse band, float32 (haar) or int32.
-    ``color`` records a channel decorrelation applied before the transform
-    ('rct'); ``layout`` the transform geometry of wide wavelets ('tiled':
-    independent (512, 1024) tiles, as the fused kernels run; 'global':
-    whole-image lifting). ``band_div`` holds the per-plane step divisors of
-    R-D truncation (() = all 1)."""
+    first): int8/int16 deadzone codes for haar, int16 deadzone codes for the
+    float wavelets, exact int16 coefficients for the integer wavelets, and
+    int32 for every wavelet at ``bit_depth`` > 8. ``ll`` = coarse band,
+    float32, or int32 for the integer wavelets. ``color`` records a channel
+    decorrelation applied before the transform ('rct' reversible, 'ict'
+    BT.601 with its chroma planes divided by ``chroma_gain``); ``layout``
+    the transform geometry of wide wavelets ('tiled': independent (512,
+    1024) tiles, as the fused kernels run; 'global': whole-image lifting).
+    ``band_div`` holds the per-plane step divisors of R-D truncation (() =
+    all 1)."""
 
     ll: torch.Tensor
     details: tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
@@ -126,6 +138,28 @@ def _join_alpha(rgb: torch.Tensor, extra) -> torch.Tensor:
     return rgb if extra is None else torch.cat([rgb, extra.to(rgb.dtype)], dim=-3)
 
 
+def _chroma(gains: tuple[float, float, float], like: torch.Tensor) -> torch.Tensor:
+    """Per-plane float32 factors (Y, Cb, Cr) that broadcast over (..., 3, H, W)."""
+    return torch.tensor(gains, dtype=torch.float32, device=like.device).reshape(3, 1, 1)
+
+
+def _encode_global(x: torch.Tensor, levels: int, spec: QuantSpec, wavelet: str, dtype: torch.dtype):
+    """Whole-image lifting: exact int32 coefficients for the integer
+    wavelets, deadzone codes of ``dtype`` for the float ones."""
+    details = []
+    if is_integer_wavelet(wavelet):
+        ll = x.to(torch.int32)
+        for _ in range(levels):
+            ll, lh, hl, hh = dwt2_level_lifting(ll, wavelet)
+            details.append((lh, hl, hh))
+    else:
+        ll = x.to(torch.float32)
+        for lvl in range(1, levels + 1):
+            ll, lh, hl, hh = dwt2_level_lifting(ll, wavelet)
+            details.append(tuple(quantize_deadzone(b, s, dtype) for b, s in zip((lh, hl, hh), spec.band_steps(lvl))))
+    return ll, details
+
+
 def encode(
     image,
     levels: int = 5,
@@ -145,12 +179,23 @@ def encode(
     uint8 into the first fused pass (integer-exact early levels), any other
     dtype is cast to float32. Integer wavelets (``'legall5.3'``/``'cdf53'``,
     ``'haar_int'``) make a lossless stream: ``spec`` is ignored, details are
-    exact int16, and :func:`decode` returns the input bit for bit.
+    exact int16, and :func:`decode` returns the input bit for bit. The float
+    wavelets ``'bior4.4'``/``'cdf97'`` and ``'db2'`` run fused tile-local
+    passes with int16 codes; any other registered wavelet runs whole-image
+    lifting.
+
     ``color='rct'`` (integer wavelets, planar RGB or RGBA; alpha is carried
-    through) applies the reversible color transform first."""
+    through) applies the reversible color transform first; ``color='ict'``
+    (float wavelets) the BT.601 rotation, with the chroma planes quantized
+    ``chroma_gain`` times coarser. ``bit_depth`` (default: 16 for uint16
+    input, else 8) above 8 takes the whole-image lifting path with int32
+    codes; ``decode(emit_u8=True)`` then emits uint16 clipped to
+    ``2**bit_depth - 1``."""
     x = as_tensor(image, device)
     if bit_depth is None:
         bit_depth = 16 if x.dtype == torch.uint16 else 8
+    if x.dtype == torch.uint16:  # few ops take uint16; int32 holds every sample
+        x = x.to(torch.int32)
     if not 8 <= bit_depth <= 16:
         raise ValueError(f"bit_depth must be in [8, 16], got {bit_depth}")
     if color not in ("none", "rct", "ict"):
@@ -165,42 +210,52 @@ def encode(
         raise ValueError("levels must be >= 1")
     if wavelet != "haar" and wavelet not in lifting_wavelets():
         raise ValueError(f"Unknown wavelet {wavelet!r}; have {sorted(('haar',) + lifting_wavelets())}")
-    if bit_depth != 8:
-        raise _not_yet("bit_depth", bit_depth)
-    if color == "ict":
-        raise _not_yet("color", color)
-    if wavelet not in _PORTED_WAVELETS:
-        raise _not_yet("wavelet", wavelet)
+    if bit_depth != 8 and wavelet not in lifting_wavelets():
+        raise ValueError(f"bit_depth {bit_depth} needs a lifting wavelet "
+                         f"({', '.join(sorted(lifting_wavelets()))}); for Haar use 'haar_int'")
     if wavelet == "cdf53":  # stored under its canonical name
         wavelet = "legall5.3"
     orig = (x.shape[-2], x.shape[-1])
     x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
-    if color == "rct":
-        rgb, extra = _split_alpha(x)
-        x = _join_alpha(rct_fwd(rgb), extra)
-    elif wavelet == "haar" and x.dtype != torch.uint8:
-        x = x.to(torch.float32)
-    h_sem, w_sem = x.shape[-2], x.shape[-1]
-    ll = x
-    details = []
-    lvl = 0
-    for k in _pass_sizes(levels):
-        if wavelet == "haar":
-            ll = contiguous_aligned(ll[..., : h_sem >> lvl, : w_sem >> lvl])
-            ll, dets = dwt_multilevel_quant(ll, tuple(spec.band_steps(lvl + i + 1) for i in range(k)))
+    if color != "none":
+        rgb, extra = _split_alpha(x)  # alpha bypasses the rotation
+        if color == "rct":
+            rgb = rct_fwd(rgb)
         else:
-            # 5/3 passes keep the tile-padded LL of the previous pass; the
-            # pair-local haar_int crops it back to the semantic extent
-            if wavelet == "haar_int":
+            rgb = ict_fwd(rgb)
+            if chroma_gain != 1.0:
+                rgb = rgb * _chroma((1.0, 1.0 / chroma_gain, 1.0 / chroma_gain), rgb)
+        x = _join_alpha(rgb, extra)
+    h_sem, w_sem = x.shape[-2], x.shape[-1]
+    layout = "tiled"
+    if bit_depth != 8:
+        layout = "global"
+        ll, details = _encode_global(x, levels, spec, wavelet, torch.int32)
+    elif wavelet == "haar" or wavelet in _INT_TILED or wavelet in _FLOAT_TILED:
+        if wavelet == "haar" and x.dtype != torch.uint8:
+            x = x.to(torch.float32)
+        ll, details, lvl = x, [], 0
+        for k in _pass_sizes(levels):
+            steps = tuple(spec.band_steps(lvl + i + 1) for i in range(k))
+            if wavelet in ("haar", "haar_int"):  # pair-local: each pass starts from the semantic extent
                 ll = ll[..., : h_sem >> lvl, : w_sem >> lvl]
-            ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet)
-        details.extend(dets)
-        lvl += k
-    if wavelet in ("haar", "haar_int"):
-        ll, details = _crop_semantic(ll, details, h_sem, w_sem, levels)
+            # the wide wavelets keep the tile-padded LL of the previous pass
+            if wavelet == "haar":
+                ll, dets = dwt_multilevel_quant(contiguous_aligned(ll), steps)
+            elif wavelet in _FLOAT_TILED:
+                ll, dets = dwt97_multilevel_quant(contiguous_aligned(ll), steps, filt=_FLOAT_TILED[wavelet])
+            else:
+                ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet)
+            details.extend(dets)
+            lvl += k
+        if wavelet in ("haar", "haar_int"):
+            ll, details = _crop_semantic(ll, details, h_sem, w_sem, levels)
+    else:
+        layout = "global"
+        ll, details = _encode_global(x, levels, spec, wavelet, torch.int16)
     return CodeStream(
         ll=ll, details=tuple(details), spec=spec, levels=levels, orig_shape=orig,
-        wavelet=wavelet, color=color, chroma_gain=chroma_gain, layout="tiled", bit_depth=bit_depth,
+        wavelet=wavelet, color=color, chroma_gain=chroma_gain, layout=layout, bit_depth=bit_depth,
     )
 
 
@@ -237,20 +292,18 @@ def _widen_div_int(stream: CodeStream) -> CodeStream:
 
 
 def _check_decodable(stream: CodeStream) -> None:
-    if stream.wavelet not in _PORTED_WAVELETS:
-        raise _not_yet("wavelet", stream.wavelet)
-    if stream.color not in ("none", "rct"):
-        raise _not_yet("color", stream.color)
-    if stream.bit_depth != 8:
-        raise _not_yet("bit_depth", stream.bit_depth)
     if stream.roi_shift:
         raise _not_yet("roi", stream.roi_shift)
 
 
 def _fused(stream: CodeStream) -> bool:
-    """Whether the fused pass kernels decode the stream: haar, haar_int
-    (pair-local, so either layout), and tiled 5/3."""
-    return stream.wavelet in ("haar", "haar_int") or stream.layout == "tiled"
+    """Whether the fused pass kernels decode the stream: the 8-bit haar and
+    haar_int streams (pair-local, so either layout), and the 8-bit tiled
+    5/3 and float-wavelet streams."""
+    if stream.bit_depth != 8:
+        return False
+    return stream.wavelet in ("haar", "haar_int") or (
+        stream.layout == "tiled" and (stream.wavelet in _INT_TILED or stream.wavelet in _FLOAT_TILED))
 
 
 def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float):
@@ -258,8 +311,6 @@ def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_
     A pass that crosses the target inverts only its coarse part; for the
     lifting kernels ``orig_k`` then keeps the encoder's tile clamps.
     ``emit_u8`` clips and casts inside the pass that reaches level 0."""
-    lifting = stream.wavelet != "haar"
-    filt = "haar_int" if stream.wavelet == "haar_int" else "legall5.3"
     x = stream.ll
     hi = stream.levels
     for k in reversed(_pass_sizes(stream.levels)):
@@ -267,58 +318,79 @@ def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_
             break
         start = max(hi - k, target_level)
         dets = [tuple(contiguous_aligned(b) for b in stream.details[i]) for i in range(start, hi)]
+        steps = tuple(_scaled_steps(stream, i + 1) for i in range(start, hi))
         ch, cw = dets[-1][0].shape[-2], dets[-1][0].shape[-1]
+        x = contiguous_aligned(x[..., :ch, :cw])
         u8 = emit_u8 and start == 0
-        if lifting:
-            x = idwt53_multilevel(contiguous_aligned(x[..., :ch, :cw]), dets, len(dets), emit_u8=u8, orig_k=k,
-                                  filt=filt)
+        if stream.wavelet == "haar":
+            x = idwt_multilevel_dequant(x.to(torch.float32), dets, steps, emit_u8=u8, recon_offset=recon_offset)
+        elif stream.wavelet in _FLOAT_TILED:
+            x = idwt97_multilevel_dequant(x, dets, steps, emit_u8=u8, orig_k=k, filt=_FLOAT_TILED[stream.wavelet],
+                                          recon_offset=recon_offset)
         else:
-            steps = tuple(_scaled_steps(stream, i + 1) for i in range(start, hi))
-            x = idwt_multilevel_dequant(contiguous_aligned(x[..., :ch, :cw].to(torch.float32)), dets, steps,
-                                        emit_u8=u8, recon_offset=recon_offset)
+            x = idwt53_multilevel(x, dets, len(dets), emit_u8=u8, orig_k=k, filt=_INT_TILED[stream.wavelet])
         hi = start
     return x
 
 
-def _inverse_global_int(stream: CodeStream, target_level: int) -> torch.Tensor:
-    """Whole-image integer lifting inverse (global-layout streams), plain
-    PyTorch as in the reference, which leaves it to XLA."""
-    x = stream.ll.to(torch.int32)
+def _inverse_global(stream: CodeStream, target_level: int, recon_offset: float) -> torch.Tensor:
+    """Whole-image lifting inverse (global-layout and high-bit-depth
+    streams), plain PyTorch as in the reference, which leaves it to XLA:
+    exact int32 for the integer wavelets, dequantized float32 otherwise."""
+    exact = is_integer_wavelet(stream.wavelet)
+    x = stream.ll.to(torch.int32) if exact else stream.ll
     for lvl in range(stream.levels, target_level, -1):
-        lh, hl, hh = (b.to(torch.int32) for b in stream.details[lvl - 1])
-        x = x[..., : lh.shape[-2], : lh.shape[-1]]
-        x = idwt2_level_lifting(x, lh, hl, hh, stream.wavelet)
+        bands = stream.details[lvl - 1]
+        if exact:
+            bands = tuple(b.to(torch.int32) for b in bands)
+        else:
+            bands = tuple(dequantize_deadzone(b, s, offset=recon_offset)
+                          for b, s in zip(bands, _scaled_steps(stream, lvl)))
+        x = x[..., : bands[0].shape[-2], : bands[0].shape[-1]]
+        x = idwt2_level_lifting(x, *bands, stream.wavelet)
     return x
+
+
+def _inverse(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float) -> torch.Tensor:
+    if _fused(stream):
+        return _inverse_passes(stream, target_level, emit_u8, recon_offset)
+    return _inverse_global(stream, target_level, recon_offset)
 
 
 def _undo_color(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
     if stream.color == "none":
         return x
     yuv, extra = _split_alpha(x)  # alpha was never rotated
-    return _join_alpha(rct_inv(yuv), extra)
+    if stream.color == "rct":
+        rgb = rct_inv(yuv)
+    else:
+        if stream.chroma_gain != 1.0:
+            yuv = yuv * _chroma((1.0, stream.chroma_gain, stream.chroma_gain), yuv)
+        rgb = ict_inv(yuv)
+    return _join_alpha(rgb, extra)
 
 
-def _emit_native(x: torch.Tensor) -> torch.Tensor:
-    """Clip and cast to the 8-bit stream's native uint8."""
-    return torch.clamp(x, 0, 255).to(torch.uint8)
+def _emit_native(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
+    """Clip and cast to the stream's native unsigned sample type: uint8, or
+    uint16 clipped to ``2**bit_depth - 1`` for high-bit-depth streams."""
+    if stream.bit_depth <= 8:
+        return torch.clamp(x, 0, 255).to(torch.uint8)
+    # through int32: few ops take uint16, and the float cast truncates as JAX's does
+    return torch.clamp(x, 0, (1 << stream.bit_depth) - 1).to(torch.int32).to(torch.uint16)
 
 
 def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5) -> torch.Tensor:
-    """CodeStream -> reconstructed image (original dims): float32 (haar) or
-    int32 (integer wavelets), or uint8 with ``emit_u8`` (clipped and cast
-    inside the finest fused pass when no color transform follows).
-    ``recon_offset`` is the deadzone reconstruction point of haar codes as a
-    fraction of the bin (0.5 = midpoint). Runs where the stream's tensors lie."""
+    """CodeStream -> reconstructed image (original dims): float32, or int32
+    for the integer wavelets; with ``emit_u8`` the stream's native unsigned
+    type (uint8, clipped and cast inside the finest fused pass when no color
+    transform follows; uint16 for high-bit-depth streams). ``recon_offset``
+    is the deadzone reconstruction point of lossy codes as a fraction of the
+    bin (0.5 = midpoint). Runs where the stream's tensors lie."""
     _check_decodable(stream)
     stream = _widen_div_int(stream)
-    u8_in = emit_u8 and stream.color == "none"
-    if _fused(stream):
-        x = _inverse_passes(stream, 0, u8_in, recon_offset)
-    else:
-        x = _inverse_global_int(stream, 0)
-    x = _undo_color(stream, x)
-    if emit_u8 and x.dtype != torch.uint8:
-        x = _emit_native(x)
+    x = _undo_color(stream, _inverse(stream, 0, emit_u8 and stream.color == "none", recon_offset))
+    if emit_u8 and x.dtype != torch.uint8:  # not already cast inside the finest pass
+        x = _emit_native(stream, x)
     return unpad(x, *stream.orig_shape)
 
 
@@ -336,19 +408,17 @@ def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False
     _check_decodable(stream)
     stream = _widen_div_int(stream)
     h, w = stream.orig_shape
-    if _fused(stream):
-        x = _inverse_passes(stream, target_level, False, recon_offset)
-    else:
-        x = _inverse_global_int(stream, target_level)
-    x = unpad(_undo_color(stream, x), -(-h // (1 << target_level)), -(-w // (1 << target_level)))
-    return _emit_native(x) if emit_u8 else x
+    x = _undo_color(stream, _inverse(stream, target_level, False, recon_offset))
+    x = unpad(x, -(-h // (1 << target_level)), -(-w // (1 << target_level)))
+    return _emit_native(stream, x) if emit_u8 else x
 
 
 def icon_from_stream(stream: CodeStream) -> torch.Tensor:
-    """uint8 icon straight from the coarse band (free at decode time); a
-    color-transformed stream's LL gets the inverse rotation first."""
+    """Native-type icon straight from the coarse band (free at decode time;
+    uint8, or uint16 for high-bit-depth streams); a color-transformed
+    stream's LL gets the inverse rotation first."""
     _check_decodable(stream)
-    return _emit_native(_undo_color(stream, stream.ll))
+    return _emit_native(stream, _undo_color(stream, stream.ll))
 
 
 def region_plan(stream: CodeStream, row0: int, row1: int, col0: int, col1: int):
@@ -382,10 +452,11 @@ def region_coefficient_fraction(stream: CodeStream, row0, row1, col0, col1) -> f
     return touched / max(total, 1)
 
 
-def _decode_region_tiled(stream: CodeStream, row0, row1, col0, col1, emit_u8: bool) -> torch.Tensor:
-    """Hierarchical region decode of a tiled 5/3 stream: the inverse pass
-    cascade coarse -> fine, each pass on its tile-aligned window only
-    (independent tiles), so the result equals the same crop of
+def _decode_region_tiled(stream: CodeStream, row0, row1, col0, col1, emit_u8: bool,
+                         recon_offset: float) -> torch.Tensor:
+    """Hierarchical region decode of a tiled 5/3 or float-wavelet stream:
+    the inverse pass cascade coarse -> fine, each pass on its tile-aligned
+    window only (independent tiles), so the result equals the same crop of
     :func:`decode`."""
     stream = _widen_div_int(stream)
     x = None
@@ -400,11 +471,16 @@ def _decode_region_tiled(stream: CodeStream, row0, row1, col0, col1, emit_u8: bo
             ll = stream.ll[..., a0 >> k : a1 >> k, b0 >> k : b1 >> k]
         else:
             ll = x[..., (a0 >> k) - pa0 : (a1 >> k) - pa0, (b0 >> k) - pb0 : (b1 >> k) - pb0]
-        x = idwt53_multilevel(contiguous_aligned(ll), dets, k, filt="legall5.3")
+        if stream.wavelet in _FLOAT_TILED:
+            steps = tuple(_scaled_steps(stream, i + 1) for i in range(lo, hi))
+            x = idwt97_multilevel_dequant(contiguous_aligned(ll), dets, steps, filt=_FLOAT_TILED[stream.wavelet],
+                                          recon_offset=recon_offset)
+        else:
+            x = idwt53_multilevel(contiguous_aligned(ll), dets, k, filt="legall5.3")
         pa0, pb0 = a0, b0
     x = _undo_color(stream, x)
     if emit_u8:
-        x = _emit_native(x)
+        x = _emit_native(stream, x)
     return x[..., row0 - pa0 : row1 - pa0, col0 - pb0 : col1 - pb0]
 
 
@@ -412,10 +488,11 @@ def decode_region(stream: CodeStream, row0: int, row1: int, col0: int, col1: int
                   recon_offset: float = 0.5) -> torch.Tensor:
     """Spatial random access: pixels ``[row0:row1, col0:col1)``, exactly the
     same crop of :func:`decode`, from the coefficients that reach them.
-    haar/haar_int slice at ``2**levels`` alignment; tiled 5/3 runs the pass
-    cascade on tile-aligned windows (:func:`region_plan`); global-layout
-    integer streams add a ``16 * 2**levels`` halo that covers the inverse
-    cascade."""
+    haar/haar_int slice at ``2**levels`` alignment; tiled 5/3 and float
+    wavelets run the pass cascade on tile-aligned windows
+    (:func:`region_plan`); global-layout streams add a ``16 * 2**levels``
+    halo that covers the inverse cascade (exact for the integer wavelets;
+    the float ones match the full decode to float32 rounding)."""
     H, W = stream.orig_shape
     if not (0 <= row0 < row1 <= H and 0 <= col0 < col1 <= W):
         raise ValueError(f"region [{row0}:{row1}, {col0}:{col1}) outside image {(H, W)}")
@@ -425,7 +502,7 @@ def decode_region(stream: CodeStream, row0: int, row1: int, col0: int, col1: int
     margin = 0
     if stream.wavelet not in ("haar", "haar_int"):
         if stream.layout == "tiled":
-            return _decode_region_tiled(stream, row0, row1, col0, col1, emit_u8)
+            return _decode_region_tiled(stream, row0, row1, col0, col1, emit_u8, recon_offset)
         margin = 16 << lv
     r0 = max(0, row0 - margin) // align * align
     c0 = max(0, col0 - margin) // align * align

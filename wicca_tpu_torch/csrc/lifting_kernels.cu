@@ -48,8 +48,6 @@
 namespace wicca {
 namespace {
 
-WICCA_HD int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
 // ---------------------------------------------------------------------------
 // K6: one forward level. x (planes, h, w) is read as if edge-padded to the
 // band grid (2 hb, 2 wb); th x tw is the tile in band coordinates (pairs).
@@ -176,17 +174,6 @@ __global__ void lift_inv_level_kernel(const int32_t* __restrict__ ll, int64_t ll
       }
     }
   }
-}
-
-// The strip of a launch: 2 x 4 where the level's tile (in pairs) has an even
-// height and a width that is a multiple of 4, as at every level of a
-// (512, 1024) tile; else 1 x 1.
-template <template <int, int> class Launch, typename... Args>
-void with_strip(int64_t th, int64_t tw, Args... args) {
-  if (th % 2 == 0 && tw % 4 == 0)
-    Launch<2, 4>::run(args...);
-  else
-    Launch<1, 1>::run(args...);
 }
 
 template <class F, typename In>

@@ -1,10 +1,10 @@
-// The reversible lifting filters of lifting_kernels.cu, one struct each, so
-// that a kernel takes its filter as a template parameter.
+// The lifting filters of the tile-local kernels, one struct each, so that a
+// kernel takes its filter as a template parameter.
 //
-// A filter lifts a strip of N neighbouring polyphase pairs, n0 .. n0+N-1, of
-// a tile-local signal of 2m samples whose ends replicate (index clamp), as
-// wicca_tpu/core/lifting.py does at every tile edge of
-// wicca_tpu/ops/dwt53_pallas.py:
+// Reversible filters (lifting_kernels.cu, K6/K7). A filter lifts a strip of
+// N neighbouring polyphase pairs, n0 .. n0+N-1, of a tile-local signal of 2m
+// samples whose ends replicate (index clamp), as wicca_tpu/core/lifting.py
+// does at every tile edge of wicca_tpu/ops/dwt53_pallas.py:
 //
 //   fwd_taps<N>(n0, m, t)      the 2N+3 sample positions the strip needs,
 //                              each in [0, 2m)
@@ -20,11 +20,28 @@
 // int32_t, or I2 to carry two signals through the same steps (the vertical
 // pass lifts the horizontal low and high bands at once). Integer arithmetic
 // only; >> is an arithmetic shift (floor), as in jnp.
+//
+// Float filters (lifting_float_kernels.cu, K8/K9): CDF 9/7 and db2 in the
+// arithmetic of wicca_tpu/ops/dwt97_pallas.py, see below.
 #pragma once
 
 #include "haar_kernels.cuh"
 
 namespace wicca {
+
+WICCA_HD int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+WICCA_HD int64_t clamp64(int64_t v, int64_t lo, int64_t hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// The strip of a launch (every lifting kernel): 2 x 4 where the level's tile (in pairs) has an even
+// height and a width that is a multiple of 4, as at every level of a
+// (512, 1024) tile; else 1 x 1.
+template <template <int, int> class Launch, typename... Args>
+void with_strip(int64_t th, int64_t tw, Args... args) {
+  if (th % 2 == 0 && tw % 4 == 0)
+    Launch<2, 4>::run(args...);
+  else
+    Launch<1, 1>::run(args...);
+}
 
 struct I2 {
   int32_t a, b;
@@ -117,6 +134,157 @@ struct HaarInt {
     for (int u = 0; u < N; ++u) {
       x[2 * u] = s[1 + u] - (d[1 + u] >> 1);
       x[2 * u + 1] = d[1 + u] + x[2 * u];
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Float filters. Each lifting step clamps the signal it reads at the tile's
+// edges (wicca_tpu/ops/dwt97_pallas.py:40-53: _next/_prev of the step's own
+// input), so a strip evaluates every intermediate signal over a window of
+// positions and, after each step, gives the entries outside [0, m) the value
+// at the nearest tile edge. A window holds positions p0 .. p0+P-1, with
+// p0 = n0 - L: L positions before the strip and R after it.
+//
+//   fwd<N>(w, p0, m, s, d)   low and high coefficients n0 .. n0+N-1 from the
+//                            samples w[2i], w[2i+1] (even, odd) of window
+//                            position i, loaded at clamped positions
+//   inv<N>(s, d, p0, m, x)   samples 2n0 .. 2n0+2N-1 from the coefficients
+//                            s[i], d[i] of window position i, loaded at
+//                            clamped positions
+//
+// The arithmetic is the Pallas kernel's, one rounding per operation in its
+// association order (the library is built with -fmad=false, the host build
+// with -ffp-contract=off): every constant is the Python double rounded once
+// to float32, and a scale by 1/c is a multiplication by f32(1/c). The
+// reference's own XLA build contracts some of these products into fused
+// multiply-adds depending on the shape, so the port agrees with it within a
+// stated tolerance, and with its plain twins bit for bit.
+// ---------------------------------------------------------------------------
+
+struct F2 {
+  float a, b;
+};
+
+WICCA_HD F2 operator+(F2 x, F2 y) { return {x.a + y.a, x.b + y.b}; }
+WICCA_HD F2 operator-(F2 x, F2 y) { return {x.a - y.a, x.b - y.b}; }
+WICCA_HD F2 operator*(float c, F2 x) { return {c * x.a, c * x.b}; }
+
+// After a step has written v[LO .. HI), give each entry whose position
+// p0 + i lies outside [0, m) the value at the nearest edge (the edges' own
+// entries lie inside [LO, HI) for every strip that never crosses a seam).
+template <int LO, int HI, typename V>
+WICCA_HD void clamp_edges(V* v, int64_t p0, int64_t m) {
+#pragma unroll
+  for (int i = HI - 2; i >= LO; --i)
+    if (p0 + i < 0) v[i] = v[i + 1];
+#pragma unroll
+  for (int i = LO + 1; i < HI; ++i)
+    if (p0 + i >= m) v[i] = v[i - 1];
+}
+
+// CDF 9/7 (JPEG2000 irreversible), _lift97_rows / _unlift97_rows:
+//   d = o + A (e + e[n+1]);  s = e + B (d[n-1] + d);
+//   d = d + G (s + s[n+1]);  s = s + D (d[n-1] + d);  s *= f32(1/K), d *= K
+struct Cdf97 {
+  static constexpr int L = 2, R = 2;
+  static constexpr float A = -0x1.960ce6p+0f;     // f32(-1.586134342059924)
+  static constexpr float B = -0x1.b2035cp-5f;     // f32(-0.052980118572961)
+  static constexpr float G = 0x1.c40cecp-1f;      // f32(0.882911075530934)
+  static constexpr float D = 0x1.c626aap-2f;      // f32(0.443506852043971)
+  static constexpr float K = 0x1.3aecb0p+0f;      // f32(1.230174104914001)
+  static constexpr float INV_K = 0x1.a03386p-1f;  // f32(1 / 1.230174104914001)
+
+  template <int N, typename V>
+  static WICCA_HD void fwd(const V* w, int64_t p0, int64_t m, V* s, V* d) {
+    constexpr int P = N + L + R;
+    V e[P], o[P], d1[P], s1[P], d2[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) e[i] = w[2 * i], o[i] = w[2 * i + 1];
+#pragma unroll
+    for (int i = 0; i < P - 1; ++i) d1[i] = o[i] + A * (e[i] + e[i + 1]);
+    clamp_edges<0, P - 1>(d1, p0, m);
+#pragma unroll
+    for (int i = 1; i < P - 1; ++i) s1[i] = e[i] + B * (d1[i - 1] + d1[i]);
+    clamp_edges<1, P - 1>(s1, p0, m);
+#pragma unroll
+    for (int i = 1; i < P - 2; ++i) d2[i] = d1[i] + G * (s1[i] + s1[i + 1]);
+    clamp_edges<1, P - 2>(d2, p0, m);
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      s[q] = INV_K * (s1[q + L] + D * (d2[q + L - 1] + d2[q + L]));
+      d[q] = K * d2[q + L];
+    }
+  }
+
+  template <int N, typename V>
+  static WICCA_HD void inv(const V* s, const V* d, int64_t p0, int64_t m, V* x) {
+    constexpr int P = N + L + R;
+    V sk[P], dk[P], s3[P], d3[P], s4[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) sk[i] = K * s[i], dk[i] = INV_K * d[i];
+#pragma unroll
+    for (int i = 1; i < P; ++i) s3[i] = sk[i] - D * (dk[i - 1] + dk[i]);
+    clamp_edges<1, P>(s3, p0, m);
+#pragma unroll
+    for (int i = 1; i < P - 1; ++i) d3[i] = dk[i] - G * (s3[i] + s3[i + 1]);
+    clamp_edges<1, P - 1>(d3, p0, m);
+#pragma unroll
+    for (int i = 2; i < P - 1; ++i) s4[i] = s3[i] - B * (d3[i - 1] + d3[i]);
+    clamp_edges<2, P - 1>(s4, p0, m);
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      x[2 * q] = s4[q + L];
+      x[2 * q + 1] = d3[q + L] - A * (s4[q + L] + s4[q + L + 1]);
+    }
+  }
+};
+
+// db2 (D4, Daubechies-Sweldens factorization, DC gain 1), _lift_db2_rows /
+// _unlift_db2_rows:
+//   s1 = e + SQ3 o;  d1 = o - C1 s1 - C2 s1[n-1];  s = SS (s1 - d1[n+1]);
+//   d = SD d1, with C1 = sqrt3/4, C2 = (sqrt3-2)/4
+struct Db2 {
+  static constexpr int L = 1, R = 1;
+  static constexpr float SQ3 = 0x1.bb67aep+0f;     // f32(sqrt(3))
+  static constexpr float C1 = 0x1.bb67aep-2f;      // f32(sqrt(3) / 4)
+  static constexpr float C2 = -0x1.126146p-4f;     // f32((sqrt(3) - 2) / 4)
+  static constexpr float SS = 0x1.76cf5ep-2f;      // f32(_D4_SCALE_S)
+  static constexpr float SD = 0x1.5db3d8p+0f;      // f32(_D4_SCALE_D)
+  static constexpr float INV_SS = 0x1.5db3d8p+1f;  // f32(1 / _D4_SCALE_S)
+  static constexpr float INV_SD = 0x1.76cf5ep-1f;  // f32(1 / _D4_SCALE_D)
+
+  template <int N, typename V>
+  static WICCA_HD void fwd(const V* w, int64_t p0, int64_t m, V* s, V* d) {
+    constexpr int P = N + L + R;
+    V s1[P], d1[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) s1[i] = w[2 * i] + SQ3 * w[2 * i + 1];
+    clamp_edges<0, P>(s1, p0, m);
+#pragma unroll
+    for (int i = 1; i < P; ++i) d1[i] = (w[2 * i + 1] - C1 * s1[i]) - C2 * s1[i - 1];
+    clamp_edges<1, P>(d1, p0, m);
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      s[q] = SS * (s1[q + L] - d1[q + L + 1]);
+      d[q] = SD * d1[q + L];
+    }
+  }
+
+  template <int N, typename V>
+  static WICCA_HD void inv(const V* s, const V* d, int64_t p0, int64_t m, V* x) {
+    constexpr int P = N + L + R;
+    V d1[P], s1[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) d1[i] = INV_SD * d[i];
+#pragma unroll
+    for (int i = 0; i < P - 1; ++i) s1[i] = INV_SS * s[i] + d1[i + 1];
+    clamp_edges<0, P - 1>(s1, p0, m);
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const V o = (d1[q + L] + C1 * s1[q + L]) + C2 * s1[q + L - 1];
+      x[2 * q] = s1[q + L] - SQ3 * o;
+      x[2 * q + 1] = o;
     }
   }
 };

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("haar_kernels.cu", "lifting_kernels.cu")
+SOURCES = ("haar_kernels.cu", "lifting_kernels.cu", "lifting_float_kernels.cu")
 HEADERS = ("launch.cuh", "haar_kernels.cuh", "lifting_kernels.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no multiply-add contraction beyond the explicit __fmaf_rn
@@ -77,8 +77,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wicca_lift_inv_level.argtypes = [
         vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, vp, c_int, vp,
     ]
+    lib.wicca_lift97_fwd_level.argtypes = [
+        vp, c_int, c_int, i64, i64, i64, i64, i64, i64, i64, vp, vp, vp, vp, c_float, c_float, c_float, vp,
+    ]
+    lib.wicca_lift97_inv_level.argtypes = [
+        vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, c_float, c_float, c_float, c_float, vp,
+        c_int, vp,
+    ]
     for fn in (lib.wicca_icon_u8, lib.wicca_icon_f32, lib.wicca_dwt_quant, lib.wicca_idwt_dequant,
-               lib.wicca_dwt_level, lib.wicca_idwt_level, lib.wicca_lift_fwd_level, lib.wicca_lift_inv_level):
+               lib.wicca_dwt_level, lib.wicca_idwt_level, lib.wicca_lift_fwd_level, lib.wicca_lift_inv_level,
+               lib.wicca_lift97_fwd_level, lib.wicca_lift97_inv_level):
         fn.restype = c_int
 
 
