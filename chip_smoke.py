@@ -16,9 +16,12 @@ Phases, each fatal on failure:
    int16 and float details; for K6/K7 shapes that cross tile seams in each
    direction, both filters, k = 1-3, uint8 and int32 input, int32 and uint8
    output, partial passes (orig_k > k); for K8/K9 the same seams, a batched
-   odd shape and a tile of one pair, both filters (cdf97, db2), k = 1-3,
-   uint8 and float32 input, steps 1.0, 0.75 and per band (hh x 1.5),
-   offsets 0.5 and 0.3, float32 and uint8 output, partial passes;
+   odd shape, a tile of one pair and a 600 x 1100 frame where blocks meet
+   inside tiles both ways, both filters (cdf97, db2), k = 1-3, uint8 and
+   float32 input, steps 1.0, 0.75 and per band (hh x 1.5), offsets 0.5 and
+   0.3, float32 and uint8 output, partial passes; and K8/K9 with the ICT
+   folded into their first and last launch (RGB and RGBA, chroma gain 1
+   and 2) against the codec's composition;
 3. the paths at full size on a 3x8704x6144 uint8 frame (bench.py's shape),
    each driven with the launch counters set to 0 just before and read just
    after:
@@ -40,7 +43,9 @@ Phases, each fatal on failure:
       to the plain path, PSNR > 30 dB; the same with ``bior4.4`` and ``db2``
       at ``color='none'``; then (after the counters are read) a
       ``decode_region`` window across tile seams equal to the crop of the
-      decode;
+      decode. ``ict`` runs through the fold: K8's first launch reads the
+      uint8 frame and applies the ICT, K9's last launch applies the inverse
+      ICT and emits uint8;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -49,9 +54,8 @@ Phases, each fatal on failure:
    alone and back to back, with device-busy time and idle share; then the
    ``kernels`` JSON line (all nine kernels), whose times and bounds sum each
    kernel's passes as often as phase 3 ran them (fatal unless their
-   launches add up to phase 3's count). The float path's ICT and its
-   inverse are plain PyTorch, as in the reference; the ``ict`` and ``none``
-   float roundtrips are timed alone and back to back.
+   launches add up to phase 3's count). The ``ict`` and ``none`` float
+   roundtrips are timed alone and back to back.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a CUDA
 device the script exits non-zero before printing any result.
@@ -276,7 +280,7 @@ def phase_kernels_vs_plain(rng, dev) -> int:
                 check_equal(f"{what} inverse", ops.idwt_level_dequant(*bands, step, quantize),
                             ops.idwt_level_dequant_plain(*bands, step, quantize))
                 n += 1
-    return n + lifting_vs_plain(rng, dev)
+    return n + lifting_vs_plain(rng, dev) + ict_fold_vs_plain(rng, dev)
 
 
 FLOAT_STEP_SETS = {
@@ -289,7 +293,8 @@ FLOAT_STEP_SETS = {
 def lifting_vs_plain(rng, dev) -> int:
     """K6/K7 and K8/K9 against their twins: shapes that cross tile seams in
     each direction (1100 pads to a multiple of 2**k, then to the tile
-    multiple), a batched odd shape (and for K8/K9 a tile of one pair), both
+    multiple), a batched odd shape (and for K8/K9 a tile of one pair, and a
+    600 x 1100 frame where blocks' regions meet inside tiles both ways), both
     filters of each, k = 1-3, uint8 input and int32 (K6) or float32 (K8)
     input, partial passes with orig_k > k. K7 emits int32 and uint8; K8/K9
     run three step sets and K9 emits float32 and uint8 at two offsets."""
@@ -318,7 +323,7 @@ def lifting_vs_plain(rng, dev) -> int:
             filters=("cdf97", "db2"), step_sets=FLOAT_STEP_SETS,
             second=("f32", lambda shape: (rng.random(shape) * 300 - 20).astype(np.float32)),
             inverses=((False, 0.5), (True, 0.5), (False, 0.3)),
-            shapes=((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23), (1, 2, 6))),
+            shapes=((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23), (1, 2, 6), (1, 600, 1100))),
     }
     n = 0
     for family, f in families.items():
@@ -348,6 +353,45 @@ def lifting_vs_plain(rng, dev) -> int:
                                 args = (dets[k - kk:], s[k - kk:], False, 0.5, k, filt)
                                 check_equal(f"{what} partial {kk} of {k}", call_inv(inv, ll, *args),
                                             call_inv(inv_plain, ll, *args))
+                                n += 1
+    return n
+
+
+def ict_fold_vs_plain(rng, dev) -> int:
+    """K8 with the ICT in its first launch and K9 with the inverse ICT in
+    its last, against the twins (the codec's composition): RGB and RGBA,
+    chroma gain 1 and 2, uint8 and float32 input, float32 and uint8 output,
+    both filters, k = 1-3 with a partial pass, on a frame where blocks meet
+    inside tiles and across seams and on a batched odd shape."""
+    from wicca_tpu_torch.core.pad import pad_to_multiple
+    from wicca_tpu_torch.ops import dwt97_cuda as fops
+
+    n = 0
+    for channels in (3, 4):
+        for shape in ((channels, 600, 1100), (2, channels, 37, 23)):
+            srcs = (("u8", torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)),
+                    ("f32", torch.from_numpy((rng.random(shape) * 300 - 20).astype(np.float32)).to(dev)))
+            for k in (1, 2, 3):
+                s = FLOAT_STEP_SETS["hh1.5"](k)
+                for src_name, src in srcs:
+                    x = pad_to_multiple(src, 1 << k).contiguous()
+                    for filt in ("cdf97", "db2"):
+                        for gain in (1.0, 2.0):
+                            what = f"ict fold {filt} k={k} {src_name}{tuple(x.shape)} gain={gain}"
+                            ll, dets = fops.dwt97_multilevel_quant(x, s, filt, "ict", gain)
+                            pll, pdets = fops.dwt97_multilevel_quant_plain(x, s, filt, "ict", gain)
+                            check_equal(f"{what} ll", ll, pll)
+                            for i, (a, b) in enumerate(zip(flat(dets), flat(pdets))):
+                                check_equal(f"{what} band {i}", a, b)
+                            for emit_u8 in (False, True):
+                                args = (ll, dets, s, emit_u8, k, filt, 0.5, "ict", gain)
+                                check_equal(f"{what} inverse emit_u8={emit_u8}", fops.idwt97_multilevel_dequant(*args),
+                                            fops.idwt97_multilevel_dequant_plain(*args))
+                                n += 1
+                            if k > 1:
+                                args = (ll, dets[1:], s[1:], True, k, filt, 0.3, "ict", gain)
+                                check_equal(f"{what} partial", fops.idwt97_multilevel_dequant(*args),
+                                            fops.idwt97_multilevel_dequant_plain(*args))
                                 n += 1
     return n
 
@@ -715,51 +759,67 @@ def lifting_passes(x):
 def float_passes(x):
     """K8/K9 at the lossy float path's shapes. The headline (bior4.4, ict,
     chroma_gain 2) run is encode, decode and decode_at_level(st, 2): K8 runs
-    its two passes once (from float32: the ICT comes first); K9 runs levels
-    5-4 twice, levels 3-1 to float32 once (the inverse ICT follows) and the
-    partial level 3 of 3 once. The uint8 regimes of color='none' are timed
-    beside them."""
+    its two passes once, the first from the uint8 frame with the ICT folded
+    into its first launch; K9 runs levels 5-4 twice, levels 3-1 to uint8
+    with the inverse ICT folded into its last launch once, and the partial
+    level 3 of 3 (to float32, with the inverse ICT) once. Timed beside them:
+    the uint8 regimes of color='none', and the passes from and to float32
+    that PR 3's design ran for `ict`."""
     from wicca_tpu_torch import QuantSpec
-    from wicca_tpu_torch.core.color import ict_fwd
+    from wicca_tpu_torch.core.color import ict_fwd_codec
     from wicca_tpu_torch.ops import dwt97_cuda as fops
 
     spec = QuantSpec(base_step=1.0)
     s13 = tuple(spec.band_steps(i) for i in (1, 2, 3))
     s45 = tuple(spec.band_steps(i) for i in (4, 5))
-    yuv = ict_fwd(x) * torch.tensor([1.0, 0.5, 0.5], dtype=torch.float32, device=x.device).reshape(3, 1, 1)
-    ll3, d13 = fops.dwt97_multilevel_quant(yuv, s13)
+    ict = ("ict", 2.0)
+    ll3, d13 = fops.dwt97_multilevel_quant(x, s13, "cdf97", *ict)
     ll5, d45 = fops.dwt97_multilevel_quant(ll3, s45)
     full = fops.idwt97_multilevel_dequant(ll5, d45, s45)
     rec3 = full[..., : ll3.shape[-2], : ll3.shape[-1]].contiguous()
-    rec = fops.idwt97_multilevel_dequant(rec3, d13, s13)
-    part = fops.idwt97_multilevel_dequant(rec3, d13[2:], s13[2:], orig_k=3)
+    rec = fops.idwt97_multilevel_dequant(rec3, d13, s13, True, None, "cdf97", 0.5, *ict)
+    part = fops.idwt97_multilevel_dequant(rec3, d13[2:], s13[2:], False, 3, "cdf97", 0.5, *ict)
+    yuv = ict_fwd_codec(x, 2.0)
+    fll3, fd13 = fops.dwt97_multilevel_quant(yuv, s13)
+    frec = fops.idwt97_multilevel_dequant(fll3, fd13, s13)
     ull3, ud13 = fops.dwt97_multilevel_quant(x, s13)
     urec = fops.idwt97_multilevel_dequant(ull3, ud13, s13, emit_u8=True)
+    n = x.numel()
+    ict_ops = 6 * n  # three products, two sums and the chroma product per sample
     return [
-        ("dwt97_multilevel_quant", "levels 1-3 from f32 (`ict`)", lambda: fops.dwt97_multilevel_quant(yuv, s13),
-         lambda: fops.dwt97_multilevel_quant_plain(yuv, s13), nbytes(yuv, ll3, *flat(d13)),
-         float_lifting_ops(yuv.numel(), 3), 1),
+        ("dwt97_multilevel_quant", "levels 1-3 from u8 + ICT (`ict`)",
+         lambda: fops.dwt97_multilevel_quant(x, s13, "cdf97", *ict),
+         lambda: fops.dwt97_multilevel_quant_plain(x, s13, "cdf97", *ict), nbytes(x, ll3, *flat(d13)),
+         float_lifting_ops(n, 3) + ict_ops, 1),
         ("dwt97_multilevel_quant", "levels 4-5 from f32", lambda: fops.dwt97_multilevel_quant(ll3, s45),
          lambda: fops.dwt97_multilevel_quant_plain(ll3, s45), nbytes(ll3, ll5, *flat(d45)),
          float_lifting_ops(ll3.numel(), 2), 1),
         ("dwt97_multilevel_quant", "levels 1-3 from u8 (`none`)", lambda: fops.dwt97_multilevel_quant(x, s13),
          lambda: fops.dwt97_multilevel_quant_plain(x, s13), nbytes(x, ull3, *flat(ud13)),
-         float_lifting_ops(x.numel(), 3), 0),
+         float_lifting_ops(n, 3), 0),
+        ("dwt97_multilevel_quant", "levels 1-3 from f32", lambda: fops.dwt97_multilevel_quant(yuv, s13),
+         lambda: fops.dwt97_multilevel_quant_plain(yuv, s13), nbytes(yuv, fll3, *flat(fd13)),
+         float_lifting_ops(n, 3), 0),
         ("idwt97_multilevel_dequant", "levels 5-4 to f32",
          lambda: fops.idwt97_multilevel_dequant(ll5, d45, s45),
          lambda: fops.idwt97_multilevel_dequant_plain(ll5, d45, s45), nbytes(ll5, full, *flat(d45)),
          float_lifting_ops(full.numel(), 2), 2),
-        ("idwt97_multilevel_dequant", "levels 3-1 to f32 (`ict`)", lambda: fops.idwt97_multilevel_dequant(rec3, d13, s13),
-         lambda: fops.idwt97_multilevel_dequant_plain(rec3, d13, s13), nbytes(rec3, rec, *flat(d13)),
-         float_lifting_ops(rec.numel(), 3), 1),
+        ("idwt97_multilevel_dequant", "levels 3-1 + ICT to u8 (`ict`)",
+         lambda: fops.idwt97_multilevel_dequant(rec3, d13, s13, True, None, "cdf97", 0.5, *ict),
+         lambda: fops.idwt97_multilevel_dequant_plain(rec3, d13, s13, True, None, "cdf97", 0.5, *ict),
+         nbytes(rec3, rec, *flat(d13)), float_lifting_ops(rec.numel(), 3) + ict_ops, 1),
         ("idwt97_multilevel_dequant", "levels 3-1 to u8 (`none`)",
          lambda: fops.idwt97_multilevel_dequant(ull3, ud13, s13, emit_u8=True),
          lambda: fops.idwt97_multilevel_dequant_plain(ull3, ud13, s13, emit_u8=True),
          nbytes(ull3, urec, *flat(ud13)), float_lifting_ops(urec.numel(), 3), 0),
-        ("idwt97_multilevel_dequant", "level 3 of 3, orig_k (`decode_at_level`)",
-         lambda: fops.idwt97_multilevel_dequant(rec3, d13[2:], s13[2:], orig_k=3),
-         lambda: fops.idwt97_multilevel_dequant_plain(rec3, d13[2:], s13[2:], orig_k=3),
-         nbytes(rec3, part, *flat(d13[2:])), float_lifting_ops(part.numel(), 1), 1),
+        ("idwt97_multilevel_dequant", "levels 3-1 to f32",
+         lambda: fops.idwt97_multilevel_dequant(fll3, fd13, s13),
+         lambda: fops.idwt97_multilevel_dequant_plain(fll3, fd13, s13),
+         nbytes(fll3, frec, *flat(fd13)), float_lifting_ops(frec.numel(), 3), 0),
+        ("idwt97_multilevel_dequant", "level 3 of 3, orig_k + ICT (`decode_at_level`)",
+         lambda: fops.idwt97_multilevel_dequant(rec3, d13[2:], s13[2:], False, 3, "cdf97", 0.5, *ict),
+         lambda: fops.idwt97_multilevel_dequant_plain(rec3, d13[2:], s13[2:], False, 3, "cdf97", 0.5, *ict),
+         nbytes(rec3, part, *flat(d13[2:])), float_lifting_ops(part.numel(), 1) + 6 * part.numel(), 1),
     ]
 
 

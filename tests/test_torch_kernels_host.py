@@ -1,12 +1,11 @@
 """The CUDA kernels of ``wicca_tpu_torch/csrc`` (every source file) built by the host C++
-compiler (``host_emulation.h`` runs each launch thread by thread) and held
+compiler (``host_emulation.h`` runs each launch thread by thread, or block by
+block with the threads as fibers that switch at every barrier) and held
 against their plain PyTorch twins through the wrappers' own launch code.
 This checks the kernels' indexing and arithmetic without a card; the card
 itself runs the same comparison in ``chip_smoke.py``. Tolerance 0."""
 
-import ctypes
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -36,17 +35,11 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def host_lib():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    so = tmp_path_factory.mktemp("host_kernels") / "libwicca_host.so"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++",
-                    "-I", str(_build.CSRC), *(str(_build.CSRC / src) for src in _build.SOURCES), "-o", str(so)],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
-    _build._declare(lib)
-    return lib
+    return _build.host_library(cxx)
 
 
 def _equal(got: torch.Tensor, want: torch.Tensor) -> None:
@@ -219,3 +212,57 @@ def test_float_pass_structure_matches_plain(host_lib):
     _equal(dwt97_cuda._launch_inv(host_lib, prec3, d13[2:], s13[2:], False, 3, "cdf97", 0.5, 0),
            dwt97_cuda.idwt97_multilevel_dequant_plain(prec3, pd13[2:], s13[2:], orig_k=3))
     assert float((out[..., :1088, :].double() - x.double()).abs().mean()) < 2.0
+
+
+@pytest.mark.parametrize("filt", ["cdf97", "db2"])
+def test_float_kernels_blocks_meet_inside_tiles(host_lib, filt):
+    """K8 and K9 at k = 3 on a frame where several blocks' regions meet
+    inside a tile in both directions at every level, and tile seams cross
+    both ways (600 rows pad to two 512-row tiles, 1100 columns to two
+    1024-column tiles); uint8 and float32 out, a partial pass."""
+    rng = np.random.default_rng(20)
+    x = pad_to_multiple(torch.from_numpy(rng.integers(0, 256, (1, 600, 1100), dtype=np.uint8)), 8).contiguous()
+    steps = dwt97_cuda._band_steps3(FLOAT_STEPS[filt](3))
+    ll, dets = dwt97_cuda._launch_fwd(host_lib, x, steps, filt, 0)
+    pll, pdets = dwt97_cuda.dwt97_multilevel_quant_plain(x, steps, filt)
+    _equal(ll, pll)
+    for bands, pbands in zip(dets, pdets):
+        for a, b in zip(bands, pbands):
+            _equal(a, b)
+    for emit_u8 in (False, True):
+        _equal(dwt97_cuda._launch_inv(host_lib, ll, dets, steps, emit_u8, 3, filt, 0.5, 0),
+               dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets, steps, emit_u8, 3, filt))
+    _equal(dwt97_cuda._launch_inv(host_lib, ll, dets[2:], steps[2:], False, 3, filt, 0.5, 0),
+           dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets[2:], steps[2:], False, 3, filt))
+
+
+@pytest.mark.parametrize("gain", [1.0, 2.0])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_ict_folded_float_kernels_match_plain(host_lib, channels, gain):
+    """K8 with the ICT in its first level and K9 with the inverse ICT in its
+    last, RGB and RGBA (alpha lifted as it is), chroma gain 1 and 2, from
+    uint8 and float32, to float32 and uint8, both filters at k = 1-3 on a
+    batched odd shape, and across a tile seam; a partial pass; the twins
+    are the codec's composition (ICT, then the plain levels; the plain
+    levels, then the inverse ICT and the clip)."""
+    rng = np.random.default_rng(30 + channels)
+    cases = [(filt, k, (2, channels, 24, 40)) for filt in ("cdf97", "db2") for k in (1, 2, 3)]
+    for filt, k, shape in cases + [("cdf97", 2, (channels, 40, 1100))]:
+        steps = dwt97_cuda._band_steps3(FLOAT_STEPS[filt](k))
+        for src in ("u8", "f32"):
+            x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8) if src == "u8"
+                                 else (rng.random(shape) * 300 - 20).astype(np.float32))
+            x = pad_to_multiple(x, 1 << k).contiguous()
+            ll, dets = dwt97_cuda._launch_fwd(host_lib, x, steps, filt, 0, "ict", gain)
+            pll, pdets = dwt97_cuda.dwt97_multilevel_quant_plain(x, steps, filt, "ict", gain)
+            _equal(ll, pll)
+            for bands, pbands in zip(dets, pdets):
+                for a, b in zip(bands, pbands):
+                    _equal(a, b)
+            for emit_u8 in (False, True):
+                _equal(dwt97_cuda._launch_inv(host_lib, ll, dets, steps, emit_u8, k, filt, 0.5, 0, "ict", gain),
+                       dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets, steps, emit_u8, k, filt, 0.5, "ict", gain))
+            if k > 1:
+                _equal(dwt97_cuda._launch_inv(host_lib, ll, dets[1:], steps[1:], True, k, filt, 0.3, 0, "ict", gain),
+                       dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets[1:], steps[1:], True, k, filt, 0.3, "ict",
+                                                                  gain))

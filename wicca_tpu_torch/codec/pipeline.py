@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch._device import as_tensor
-from wicca_tpu_torch.core.color import ict_fwd, ict_inv, rct_fwd, rct_inv
+from wicca_tpu_torch.core.color import ict_fwd_codec, ict_inv_codec, join_alpha, rct_fwd, rct_inv, split_alpha
 from wicca_tpu_torch.core.lifting import dwt2_level_lifting, idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
 from wicca_tpu_torch.core.quant import QuantSpec, dequantize_deadzone, quantize_deadzone
@@ -129,20 +129,6 @@ class CodeStream:
         return n
 
 
-def _split_alpha(x: torch.Tensor):
-    """(the three color planes, the alpha plane or None) of planar input."""
-    return (x[..., :3, :, :], x[..., 3:, :, :]) if x.shape[-3] == 4 else (x, None)
-
-
-def _join_alpha(rgb: torch.Tensor, extra) -> torch.Tensor:
-    return rgb if extra is None else torch.cat([rgb, extra.to(rgb.dtype)], dim=-3)
-
-
-def _chroma(gains: tuple[float, float, float], like: torch.Tensor) -> torch.Tensor:
-    """Per-plane float32 factors (Y, Cb, Cr) that broadcast over (..., 3, H, W)."""
-    return torch.tensor(gains, dtype=torch.float32, device=like.device).reshape(3, 1, 1)
-
-
 def _encode_global(x: torch.Tensor, levels: int, spec: QuantSpec, wavelet: str, dtype: torch.dtype):
     """Whole-image lifting: exact int32 coefficients for the integer
     wavelets, deadzone codes of ``dtype`` for the float ones."""
@@ -217,15 +203,13 @@ def encode(
         wavelet = "legall5.3"
     orig = (x.shape[-2], x.shape[-1])
     x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
-    if color != "none":
-        rgb, extra = _split_alpha(x)  # alpha bypasses the rotation
-        if color == "rct":
-            rgb = rct_fwd(rgb)
-        else:
-            rgb = ict_fwd(rgb)
-            if chroma_gain != 1.0:
-                rgb = rgb * _chroma((1.0, 1.0 / chroma_gain, 1.0 / chroma_gain), rgb)
-        x = _join_alpha(rgb, extra)
+    # the tiled float kernels fold the ICT into their first level (K8)
+    fold = color == "ict" and bit_depth == 8 and wavelet in _FLOAT_TILED
+    if color == "rct":
+        rgb, extra = split_alpha(x)  # alpha bypasses the rotation
+        x = join_alpha(rct_fwd(rgb), extra)
+    elif color == "ict" and not fold:
+        x = ict_fwd_codec(x, chroma_gain)
     h_sem, w_sem = x.shape[-2], x.shape[-1]
     layout = "tiled"
     if bit_depth != 8:
@@ -243,7 +227,9 @@ def encode(
             if wavelet == "haar":
                 ll, dets = dwt_multilevel_quant(contiguous_aligned(ll), steps)
             elif wavelet in _FLOAT_TILED:
-                ll, dets = dwt97_multilevel_quant(contiguous_aligned(ll), steps, filt=_FLOAT_TILED[wavelet])
+                ll, dets = dwt97_multilevel_quant(contiguous_aligned(ll), steps, filt=_FLOAT_TILED[wavelet],
+                                                  color="ict" if fold and lvl == 0 else "none",
+                                                  chroma_gain=chroma_gain)
             else:
                 ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet)
             details.extend(dets)
@@ -306,11 +292,21 @@ def _fused(stream: CodeStream) -> bool:
         stream.layout == "tiled" and (stream.wavelet in _INT_TILED or stream.wavelet in _FLOAT_TILED))
 
 
+def _folds_color(stream: CodeStream, target_level: int) -> bool:
+    """Whether the inverse passes down to ``target_level`` undo the color
+    transform themselves: the ICT of tiled 8-bit float-wavelet streams, in
+    the last launch of K9."""
+    return (stream.color == "ict" and _fused(stream) and stream.wavelet in _FLOAT_TILED
+            and target_level < stream.levels)
+
+
 def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float):
     """The fused inverse passes, coarse to fine, down to ``target_level``.
     A pass that crosses the target inverts only its coarse part; for the
     lifting kernels ``orig_k`` then keeps the encoder's tile clamps.
-    ``emit_u8`` clips and casts inside the pass that reaches level 0."""
+    ``emit_u8`` clips and casts inside the pass that reaches the target,
+    which also undoes the ICT where :func:`_folds_color` says so."""
+    color = "ict" if _folds_color(stream, target_level) else "none"
     x = stream.ll
     hi = stream.levels
     for k in reversed(_pass_sizes(stream.levels)):
@@ -321,12 +317,14 @@ def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_
         steps = tuple(_scaled_steps(stream, i + 1) for i in range(start, hi))
         ch, cw = dets[-1][0].shape[-2], dets[-1][0].shape[-1]
         x = contiguous_aligned(x[..., :ch, :cw])
-        u8 = emit_u8 and start == 0
+        last = start == target_level
+        u8 = emit_u8 and last
         if stream.wavelet == "haar":
             x = idwt_multilevel_dequant(x.to(torch.float32), dets, steps, emit_u8=u8, recon_offset=recon_offset)
         elif stream.wavelet in _FLOAT_TILED:
             x = idwt97_multilevel_dequant(x, dets, steps, emit_u8=u8, orig_k=k, filt=_FLOAT_TILED[stream.wavelet],
-                                          recon_offset=recon_offset)
+                                          recon_offset=recon_offset, color=color if last else "none",
+                                          chroma_gain=stream.chroma_gain)
         else:
             x = idwt53_multilevel(x, dets, len(dets), emit_u8=u8, orig_k=k, filt=_INT_TILED[stream.wavelet])
         hi = start
@@ -360,14 +358,10 @@ def _inverse(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset:
 def _undo_color(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
     if stream.color == "none":
         return x
-    yuv, extra = _split_alpha(x)  # alpha was never rotated
     if stream.color == "rct":
-        rgb = rct_inv(yuv)
-    else:
-        if stream.chroma_gain != 1.0:
-            yuv = yuv * _chroma((1.0, stream.chroma_gain, stream.chroma_gain), yuv)
-        rgb = ict_inv(yuv)
-    return _join_alpha(rgb, extra)
+        yuv, extra = split_alpha(x)  # alpha was never rotated
+        return join_alpha(rct_inv(yuv), extra)
+    return ict_inv_codec(x, stream.chroma_gain)
 
 
 def _emit_native(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
@@ -383,12 +377,16 @@ def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5)
     """CodeStream -> reconstructed image (original dims): float32, or int32
     for the integer wavelets; with ``emit_u8`` the stream's native unsigned
     type (uint8, clipped and cast inside the finest fused pass when no color
-    transform follows; uint16 for high-bit-depth streams). ``recon_offset``
+    transform follows or the pass undoes the ICT itself; uint16 for
+    high-bit-depth streams). ``recon_offset``
     is the deadzone reconstruction point of lossy codes as a fraction of the
     bin (0.5 = midpoint). Runs where the stream's tensors lie."""
     _check_decodable(stream)
     stream = _widen_div_int(stream)
-    x = _undo_color(stream, _inverse(stream, 0, emit_u8 and stream.color == "none", recon_offset))
+    folded = _folds_color(stream, 0)
+    x = _inverse(stream, 0, emit_u8 and (stream.color == "none" or folded), recon_offset)
+    if not folded:
+        x = _undo_color(stream, x)
     if emit_u8 and x.dtype != torch.uint8:  # not already cast inside the finest pass
         x = _emit_native(stream, x)
     return unpad(x, *stream.orig_shape)
@@ -408,9 +406,12 @@ def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False
     _check_decodable(stream)
     stream = _widen_div_int(stream)
     h, w = stream.orig_shape
-    x = _undo_color(stream, _inverse(stream, target_level, False, recon_offset))
+    folded = _folds_color(stream, target_level)
+    x = _inverse(stream, target_level, emit_u8 and folded, recon_offset)
+    if not folded:
+        x = _undo_color(stream, x)
     x = unpad(x, -(-h // (1 << target_level)), -(-w // (1 << target_level)))
-    return _emit_native(stream, x) if emit_u8 else x
+    return _emit_native(stream, x) if emit_u8 and x.dtype != torch.uint8 else x
 
 
 def icon_from_stream(stream: CodeStream) -> torch.Tensor:

@@ -7,7 +7,8 @@
 * ICT — irreversible BT.601 YCbCr (lossy path), float32.
 
 All functions take planar ``(..., 3, H, W)`` tensors, channel axis third
-from last.
+from last; the codec's steps (``ict_fwd_codec``/``ict_inv_codec``) also
+take RGBA, whose alpha plane bypasses the rotation.
 """
 
 from __future__ import annotations
@@ -57,3 +58,36 @@ def ict_fwd(x: torch.Tensor) -> torch.Tensor:
 
 def ict_inv(x: torch.Tensor) -> torch.Tensor:
     return _mix(x, _ICT_INV)
+
+
+def split_alpha(x: torch.Tensor):
+    """(the three color planes, the alpha plane or None) of planar input."""
+    return (x[..., :3, :, :], x[..., 3:, :, :]) if x.shape[-3] == 4 else (x, None)
+
+
+def join_alpha(rgb: torch.Tensor, extra) -> torch.Tensor:
+    return rgb if extra is None else torch.cat([rgb, extra.to(rgb.dtype)], dim=-3)
+
+
+def chroma_factors(gains: tuple[float, float, float], like: torch.Tensor) -> torch.Tensor:
+    """Per-plane float32 factors (Y, Cb, Cr) that broadcast over (..., 3, H, W)."""
+    return torch.tensor(gains, dtype=torch.float32, device=like.device).reshape(3, 1, 1)
+
+
+def ict_fwd_codec(x: torch.Tensor, chroma_gain: float = 1.0) -> torch.Tensor:
+    """The codec's forward color step: planar RGB or RGBA -> YCbCr float32
+    with the chroma planes divided by ``chroma_gain`` (alpha carried as
+    float32)."""
+    rgb, extra = split_alpha(x)
+    yuv = ict_fwd(rgb)
+    if chroma_gain != 1.0:
+        yuv = yuv * chroma_factors((1.0, 1.0 / chroma_gain, 1.0 / chroma_gain), yuv)
+    return join_alpha(yuv, extra)
+
+
+def ict_inv_codec(x: torch.Tensor, chroma_gain: float = 1.0) -> torch.Tensor:
+    """Inverse of :func:`ict_fwd_codec` (float32 RGB or RGBA)."""
+    yuv, extra = split_alpha(x)
+    if chroma_gain != 1.0:
+        yuv = yuv * chroma_factors((1.0, chroma_gain, chroma_gain), yuv)
+    return join_alpha(ict_inv(yuv), extra)

@@ -1,18 +1,31 @@
 // Launch plumbing shared by the kernel sources. Under nvcc a launch is
-// kernel<<<grid, block, 0, stream>>>; a host C++ compiler builds the same
-// source against host_emulation.h, which runs each launch thread by thread
-// (tests/test_torch_kernels_host.py).
+// kernel<<<grid, block, smem, stream>>>; a host C++ compiler builds the same
+// source against host_emulation.h, which runs each launch thread by thread,
+// or, for kernels with shared memory and barriers, block by block with the
+// threads as fibers (tests/test_torch_kernels_host.py).
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 #define WICCA_LAUNCH(kernel, grid, block, stream, ...) kernel<<<grid, block, 0, stream>>>(__VA_ARGS__)
+#define WICCA_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
+  kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+// the block's dynamic shared memory, 16-byte aligned
+#define WICCA_SMEM(name)                                         \
+  extern __shared__ __align__(16) unsigned char wicca_smem_[]; \
+  unsigned char* name = wicca_smem_
+#define WICCA_D __device__ __forceinline__
 #else
 #include "host_emulation.h"
 #define WICCA_LAUNCH(kernel, grid, block, stream, ...) \
   wicca_emulate_launch(grid, block, [&] { kernel(__VA_ARGS__); })
+#define WICCA_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
+  wicca_emulate_block_launch(grid, block, smem, [&] { kernel(__VA_ARGS__); })
+#define WICCA_SMEM(name) unsigned char* name = wicca_dyn_smem
+#define WICCA_D inline
 #endif
 
 namespace wicca {
@@ -27,6 +40,33 @@ inline dim3 grid_for(int64_t planes, int64_t rows, int64_t cols) {
   const int64_t gy = (rows + kBlockY - 1) / kBlockY;
   return dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy < 65535 ? gy : 65535),
               static_cast<unsigned>(planes < 65535 ? planes : 65535));
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers (cp.async.cg: cached in L2 only). Both addresses 16-byte aligned.
+WICCA_D void copy16_async(void* smem, const void* gmem) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+#else
+  memcpy(smem, gmem, 16);
+#endif
+}
+
+// Close this thread's group of copy16_async calls; async_wait<N> waits
+// until at most N of its groups are still in flight. A __syncthreads() must
+// follow before other threads read what the group copied.
+WICCA_D void async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+WICCA_D void async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
 }
 
 }  // namespace wicca

@@ -139,19 +139,23 @@ struct HaarInt {
 };
 
 // ---------------------------------------------------------------------------
-// Float filters. Each lifting step clamps the signal it reads at the tile's
-// edges (wicca_tpu/ops/dwt97_pallas.py:40-53: _next/_prev of the step's own
+// Float filters (K8/K9 lift each line of their shared-memory window in runs
+// of N positions, a run per thread). Each lifting step clamps the signal it
+// reads at the tile's edges (wicca_tpu/ops/dwt97_pallas.py:40-53: _next/_prev of the step's own
 // input), so a strip evaluates every intermediate signal over a window of
 // positions and, after each step, gives the entries outside [0, m) the value
 // at the nearest tile edge. A window holds positions p0 .. p0+P-1, with
 // p0 = n0 - L: L positions before the strip and R after it.
 //
-//   fwd<N>(w, p0, m, s, d)   low and high coefficients n0 .. n0+N-1 from the
-//                            samples w[2i], w[2i+1] (even, odd) of window
-//                            position i, loaded at clamped positions
-//   inv<N>(s, d, p0, m, x)   samples 2n0 .. 2n0+2N-1 from the coefficients
-//                            s[i], d[i] of window position i, loaded at
-//                            clamped positions
+//   fwd<N, CLAMP>(w, p0, m, s, d)  low and high coefficients n0 .. n0+N-1
+//                                  from the samples w[2i], w[2i+1] (even,
+//                                  odd) of window position i, loaded at
+//                                  clamped positions
+//   inv<N, CLAMP>(s, d, p0, m, x)  samples 2n0 .. 2n0+2N-1 from the
+//                                  coefficients s[i], d[i] of window
+//                                  position i, loaded at clamped positions
+//
+// CLAMP false skips the clamps, for a window that lies inside the tile.
 //
 // The arithmetic is the Pallas kernel's, one rounding per operation in its
 // association order (the library is built with -fmad=false, the host build
@@ -162,17 +166,10 @@ struct HaarInt {
 // stated tolerance, and with its plain twins bit for bit.
 // ---------------------------------------------------------------------------
 
-struct F2 {
-  float a, b;
-};
-
-WICCA_HD F2 operator+(F2 x, F2 y) { return {x.a + y.a, x.b + y.b}; }
-WICCA_HD F2 operator-(F2 x, F2 y) { return {x.a - y.a, x.b - y.b}; }
-WICCA_HD F2 operator*(float c, F2 x) { return {c * x.a, c * x.b}; }
-
 // After a step has written v[LO .. HI), give each entry whose position
 // p0 + i lies outside [0, m) the value at the nearest edge (the edges' own
-// entries lie inside [LO, HI) for every strip that never crosses a seam).
+// entries lie inside [LO, HI) for every strip that starts inside the tile;
+// its positions past the tile's end, if any, are never stored).
 template <int LO, int HI, typename V>
 WICCA_HD void clamp_edges(V* v, int64_t p0, int64_t m) {
 #pragma unroll
@@ -195,7 +192,7 @@ struct Cdf97 {
   static constexpr float K = 0x1.3aecb0p+0f;      // f32(1.230174104914001)
   static constexpr float INV_K = 0x1.a03386p-1f;  // f32(1 / 1.230174104914001)
 
-  template <int N, typename V>
+  template <int N, bool CLAMP = true, typename V>
   static WICCA_HD void fwd(const V* w, int64_t p0, int64_t m, V* s, V* d) {
     constexpr int P = N + L + R;
     V e[P], o[P], d1[P], s1[P], d2[P];
@@ -203,13 +200,13 @@ struct Cdf97 {
     for (int i = 0; i < P; ++i) e[i] = w[2 * i], o[i] = w[2 * i + 1];
 #pragma unroll
     for (int i = 0; i < P - 1; ++i) d1[i] = o[i] + A * (e[i] + e[i + 1]);
-    clamp_edges<0, P - 1>(d1, p0, m);
+    if constexpr (CLAMP) clamp_edges<0, P - 1>(d1, p0, m);
 #pragma unroll
     for (int i = 1; i < P - 1; ++i) s1[i] = e[i] + B * (d1[i - 1] + d1[i]);
-    clamp_edges<1, P - 1>(s1, p0, m);
+    if constexpr (CLAMP) clamp_edges<1, P - 1>(s1, p0, m);
 #pragma unroll
     for (int i = 1; i < P - 2; ++i) d2[i] = d1[i] + G * (s1[i] + s1[i + 1]);
-    clamp_edges<1, P - 2>(d2, p0, m);
+    if constexpr (CLAMP) clamp_edges<1, P - 2>(d2, p0, m);
 #pragma unroll
     for (int q = 0; q < N; ++q) {
       s[q] = INV_K * (s1[q + L] + D * (d2[q + L - 1] + d2[q + L]));
@@ -217,7 +214,7 @@ struct Cdf97 {
     }
   }
 
-  template <int N, typename V>
+  template <int N, bool CLAMP = true, typename V>
   static WICCA_HD void inv(const V* s, const V* d, int64_t p0, int64_t m, V* x) {
     constexpr int P = N + L + R;
     V sk[P], dk[P], s3[P], d3[P], s4[P];
@@ -225,13 +222,13 @@ struct Cdf97 {
     for (int i = 0; i < P; ++i) sk[i] = K * s[i], dk[i] = INV_K * d[i];
 #pragma unroll
     for (int i = 1; i < P; ++i) s3[i] = sk[i] - D * (dk[i - 1] + dk[i]);
-    clamp_edges<1, P>(s3, p0, m);
+    if constexpr (CLAMP) clamp_edges<1, P>(s3, p0, m);
 #pragma unroll
     for (int i = 1; i < P - 1; ++i) d3[i] = dk[i] - G * (s3[i] + s3[i + 1]);
-    clamp_edges<1, P - 1>(d3, p0, m);
+    if constexpr (CLAMP) clamp_edges<1, P - 1>(d3, p0, m);
 #pragma unroll
     for (int i = 2; i < P - 1; ++i) s4[i] = s3[i] - B * (d3[i - 1] + d3[i]);
-    clamp_edges<2, P - 1>(s4, p0, m);
+    if constexpr (CLAMP) clamp_edges<2, P - 1>(s4, p0, m);
 #pragma unroll
     for (int q = 0; q < N; ++q) {
       x[2 * q] = s4[q + L];
@@ -254,16 +251,16 @@ struct Db2 {
   static constexpr float INV_SS = 0x1.5db3d8p+1f;  // f32(1 / _D4_SCALE_S)
   static constexpr float INV_SD = 0x1.76cf5ep-1f;  // f32(1 / _D4_SCALE_D)
 
-  template <int N, typename V>
+  template <int N, bool CLAMP = true, typename V>
   static WICCA_HD void fwd(const V* w, int64_t p0, int64_t m, V* s, V* d) {
     constexpr int P = N + L + R;
     V s1[P], d1[P];
 #pragma unroll
     for (int i = 0; i < P; ++i) s1[i] = w[2 * i] + SQ3 * w[2 * i + 1];
-    clamp_edges<0, P>(s1, p0, m);
+    if constexpr (CLAMP) clamp_edges<0, P>(s1, p0, m);
 #pragma unroll
     for (int i = 1; i < P; ++i) d1[i] = (w[2 * i + 1] - C1 * s1[i]) - C2 * s1[i - 1];
-    clamp_edges<1, P>(d1, p0, m);
+    if constexpr (CLAMP) clamp_edges<1, P>(d1, p0, m);
 #pragma unroll
     for (int q = 0; q < N; ++q) {
       s[q] = SS * (s1[q + L] - d1[q + L + 1]);
@@ -271,7 +268,7 @@ struct Db2 {
     }
   }
 
-  template <int N, typename V>
+  template <int N, bool CLAMP = true, typename V>
   static WICCA_HD void inv(const V* s, const V* d, int64_t p0, int64_t m, V* x) {
     constexpr int P = N + L + R;
     V d1[P], s1[P];
@@ -279,7 +276,7 @@ struct Db2 {
     for (int i = 0; i < P; ++i) d1[i] = INV_SD * d[i];
 #pragma unroll
     for (int i = 0; i < P - 1; ++i) s1[i] = INV_SS * s[i] + d1[i + 1];
-    clamp_edges<0, P - 1>(s1, p0, m);
+    if constexpr (CLAMP) clamp_edges<0, P - 1>(s1, p0, m);
 #pragma unroll
     for (int q = 0; q < N; ++q) {
       const V o = (d1[q + L] + C1 * s1[q + L]) + C2 * s1[q + L - 1];
@@ -288,5 +285,30 @@ struct Db2 {
     }
   }
 };
+
+// BT.601 ICT (core/color.py's _ICT and _ICT_INV): one output plane of _mix,
+// (m0 a + m1 b) + m2 c, each m the Python double rounded once to float32, as
+// PyTorch multiplies a float32 plane by a Python scalar.
+WICCA_HD float mix3(float m0, float m1, float m2, float a, float b, float c) {
+  return add_rn(add_rn(mul_rn(m0, a), mul_rn(m1, b)), mul_rn(m2, c));
+}
+
+// Plane q (Y, Cb, Cr) of ict_fwd from r, g, b.
+WICCA_HD float ict_fwd_plane(int q, float r, float g, float b) {
+  switch (q) {
+    case 0: return mix3(0x1.322d0ep-2f, 0x1.2c8b44p-1f, 0x1.d2f1aap-4f, r, g, b);
+    case 1: return mix3(-0x1.599242p-3f, -0x1.5336dep-2f, 0x1.0p-1f, r, g, b);
+    default: return mix3(0x1.0p-1f, -0x1.acbc8cp-2f, -0x1.4d0dd0p-4f, r, g, b);
+  }
+}
+
+// Plane k (R, G, B) of ict_inv from y, cb, cr.
+WICCA_HD float ict_inv_plane(int k, float y, float cb, float cr) {
+  switch (k) {
+    case 0: return mix3(0x1.0p+0f, 0.0f, 0x1.66e978p+0f, y, cb, cr);
+    case 1: return mix3(0x1.0p+0f, -0x1.606530p-2f, -0x1.6da33cp-1f, y, cb, cr);
+    default: return mix3(0x1.0p+0f, 0x1.c5a1cap+0f, 0.0f, y, cb, cr);
+  }
+}
 
 }  // namespace wicca

@@ -31,6 +31,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no multiply-add contraction beyond the explicit __fmaf_rn
 # calls, which sit exactly where the reference rounds a product and a sum once
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the host build of the same sources (host_library); -ffp-contract=off as -fmad=false
+HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++")
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the build this process ran (None: reused or not built)
@@ -50,9 +52,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's bin directory on PATH")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _digest(flags=NVCC_FLAGS, headers=HEADERS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in SOURCES + headers:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -78,11 +80,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, vp, c_int, vp,
     ]
     lib.wicca_lift97_fwd_level.argtypes = [
-        vp, c_int, c_int, i64, i64, i64, i64, i64, i64, i64, vp, vp, vp, vp, c_float, c_float, c_float, vp,
+        vp, c_int, c_int, i64, i64, i64, i64, i64, i64, i64, vp, vp, vp, vp, c_float, c_float, c_float,
+        c_int, c_int, c_float, vp,
     ]
     lib.wicca_lift97_inv_level.argtypes = [
         vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, c_float, c_float, c_float, c_float, vp,
-        c_int, vp,
+        c_int, c_int, c_int, c_float, vp,
     ]
     for fn in (lib.wicca_icon_u8, lib.wicca_icon_f32, lib.wicca_dwt_quant, lib.wicca_idwt_dequant,
                lib.wicca_dwt_level, lib.wicca_idwt_level, lib.wicca_lift_fwd_level, lib.wicca_lift_inv_level,
@@ -132,6 +135,27 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     _lib = lib
+    return lib
+
+
+def host_library(cxx: str) -> ctypes.CDLL:
+    """The same sources built by the host C++ compiler ``cxx`` against
+    ``csrc/host_emulation.h`` into a CPU library (the tests hold its kernels
+    against the plain twins), cached as :func:`library` caches its build."""
+    flags = (cxx, *HOST_FLAGS)
+    out_dir = BUILD_ROOT / f"host-{_digest(flags, HEADERS + ('host_emulation.h',))}"
+    so = out_dir / "libwicca_host.so"
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with open(out_dir / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():
+                tmp = out_dir / f"libwicca_host.{os.getpid()}.so"
+                subprocess.run([*flags, "-I", str(CSRC), *(str(CSRC / s) for s in SOURCES), "-o", str(tmp)],
+                               check=True, capture_output=True, timeout=600)
+                os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _declare(lib)
     return lib
 
 

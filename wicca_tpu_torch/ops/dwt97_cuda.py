@@ -22,6 +22,14 @@ agree bit for bit; the JAX reference, whose XLA build contracts some
 products into fused multiply-adds, agrees within the tolerance stated in
 ``tests/test_torch_dwt97.py``.
 
+With ``color='ict'`` the input of K8 is planar RGB or RGBA, and its first
+launch applies the codec's forward ICT with ``chroma_gain``
+(:func:`~wicca_tpu_torch.core.color.ict_fwd_codec`) before lifting; the
+last launch of K9 applies its inverse
+(:func:`~wicca_tpu_torch.core.color.ict_inv_codec`) and then, with
+``emit_u8``, the clip to uint8. The plain twins are exactly that
+composition.
+
 A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (``csrc/lifting_float_kernels.cu``, one launch
 per level) or raises; nothing falls back. Each launch adds one to
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from wicca_tpu_torch.core.color import ict_fwd_codec, ict_inv_codec
 from wicca_tpu_torch.core.haar import _interleave
 from wicca_tpu_torch.core.lifting import (
     _A97,
@@ -68,6 +77,7 @@ from wicca_tpu_torch.ops.dwt_cuda import (
 LAUNCHES = {"dwt97_multilevel_quant": 0, "idwt97_multilevel_dequant": 0}
 
 _FILTERS = {"cdf97": 0, "db2": 1}  # the kernels' filter ids
+_COLORS = {"none": 0, "ict": 1}
 _QMAX = 32767  # codes are always int16
 
 
@@ -141,9 +151,19 @@ def _level_inv(ll, lh, hl, hh, filt: str):
 # ---------------------------------------------------------------------------
 
 
-def _check_fwd(x: torch.Tensor, steps: tuple, filt: str) -> int:
+def _check_color(t: torch.Tensor, color: str, chroma_gain: float) -> None:
+    if color not in _COLORS:
+        raise ValueError(f"color must be one of {sorted(_COLORS)}, got {color!r}")
+    if color == "ict" and (t.ndim < 3 or t.shape[-3] not in (3, 4)):
+        raise ValueError(f"color='ict' needs planar (..., 3|4, H, W) planes, got {tuple(t.shape)}")
+    if not chroma_gain > 0:
+        raise ValueError(f"chroma_gain must be > 0, got {chroma_gain}")
+
+
+def _check_fwd(x: torch.Tensor, steps: tuple, filt: str, color: str = "none", chroma_gain: float = 1.0) -> int:
     if filt not in _FILTERS:
         raise ValueError(f"filt must be one of {sorted(_FILTERS)}")
+    _check_color(x, color, chroma_gain)
     k = len(steps)
     if not 1 <= k <= 3:
         raise ValueError("1..3 levels per pass")
@@ -161,14 +181,19 @@ def _as_input(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype in (torch.uint8, torch.float32) else x.to(torch.float32)
 
 
-def dwt97_multilevel_quant_plain(x: torch.Tensor, steps: tuple, filt: str = "cdf97"):
+def dwt97_multilevel_quant_plain(x: torch.Tensor, steps: tuple, filt: str = "cdf97", color: str = "none",
+                                 chroma_gain: float = 1.0):
     """``k = len(steps)`` <= 3 tile-local float lifting levels of planar
     ``(..., H, W)`` input (uint8 or any dtype cast to float32), H and W
     divisible by ``2**k``, each level horizontal then vertical, with the
     detail bands quantized to int16 by their (lh, hl, hh) steps. Returns
     ``(ll_f32, [(lh, hl, hh) int16, ...])`` fine to coarse, over the input
-    edge-padded to tile multiples."""
-    _check_fwd(x, steps, filt)
+    edge-padded to tile multiples. ``color='ict'``: the codec's forward ICT
+    with ``chroma_gain`` first (RGB or RGBA planes on the third axis from
+    last)."""
+    _check_fwd(x, steps, filt, color, chroma_gain)
+    if color == "ict":
+        x = ict_fwd_codec(x, chroma_gain)
     steps = _band_steps3(steps)
     lead = tuple(x.shape[:-2])
     flat = x.reshape(-1, x.shape[-2], x.shape[-1])
@@ -181,11 +206,13 @@ def dwt97_multilevel_quant_plain(x: torch.Tensor, steps: tuple, filt: str = "cdf
     return _unflatten(lead, cur, details)
 
 
-def _launch_fwd(lib, x: torch.Tensor, steps: tuple, filt: str, stream: int):
+def _launch_fwd(lib, x: torch.Tensor, steps: tuple, filt: str, stream: int, color: str = "none",
+                chroma_gain: float = 1.0):
     """K8's launches through ``lib`` on ``stream`` (``x`` uint8 or float32,
     checked; ``steps`` in (lh, hl, hh) triples): one per level, the LL of
-    each level the next one's input."""
+    each level the next one's input; the first applies ``color``."""
     c, h, w = _planes(x.shape), x.shape[-2], x.shape[-1]
+    cin = x.shape[-3] if color == "ict" else 1
     hp, th = _tiled_extent(h, _TILE_H)
     wp, tw = _tiled_extent(w, _TILE_W)
     cur, details = x, []
@@ -195,7 +222,8 @@ def _launch_fwd(lib, x: torch.Tensor, steps: tuple, filt: str, stream: int):
         bands = tuple(torch.empty((c, hb, wb), dtype=torch.int16, device=x.device) for _ in range(3))
         rc = lib.wicca_lift97_fwd_level(cur.data_ptr(), int(cur.dtype == torch.uint8), _FILTERS[filt], c,
                                         cur.shape[-2], cur.shape[-1], hb, wb, th >> lvl, tw >> lvl, ll.data_ptr(),
-                                        *(b.data_ptr() for b in bands), *(_inv(s) for s in level_steps), stream)
+                                        *(b.data_ptr() for b in bands), *(_inv(s) for s in level_steps),
+                                        _COLORS[color] if lvl == 1 else 0, cin, _inv(chroma_gain), stream)
         _build.check(rc, "dwt97_multilevel_quant")
         LAUNCHES["dwt97_multilevel_quant"] += 1
         details.append(bands)
@@ -203,16 +231,18 @@ def _launch_fwd(lib, x: torch.Tensor, steps: tuple, filt: str, stream: int):
     return _unflatten(tuple(x.shape[:-2]), cur, details)
 
 
-def dwt97_multilevel_quant(x: torch.Tensor, steps: tuple, filt: str = "cdf97"):
+def dwt97_multilevel_quant(x: torch.Tensor, steps: tuple, filt: str = "cdf97", color: str = "none",
+                           chroma_gain: float = 1.0):
     """K8: :func:`dwt97_multilevel_quant_plain` as one launch per level; the
-    tile padding of the input is an index clamp in the kernel."""
-    _check_fwd(x, steps, filt)
+    tile padding of the input is an index clamp in the kernel, and the ICT
+    (``color='ict'``) the first launch's prologue."""
+    _check_fwd(x, steps, filt, color, chroma_gain)
     if x.device.type == "cpu":
-        return dwt97_multilevel_quant_plain(x, steps, filt)
+        return dwt97_multilevel_quant_plain(x, steps, filt, color, chroma_gain)
     x = contiguous_aligned(_as_input(x))
     _require_cuda("dwt97_multilevel_quant", x)
     with torch.cuda.device(x.device):
-        return _launch_fwd(_build.library(), x, _band_steps3(steps), filt, _stream(x))
+        return _launch_fwd(_build.library(), x, _band_steps3(steps), filt, _stream(x), color, chroma_gain)
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +250,11 @@ def dwt97_multilevel_quant(x: torch.Tensor, steps: tuple, filt: str = "cdf97"):
 # ---------------------------------------------------------------------------
 
 
-def _check_inv(ll: torch.Tensor, details, steps: tuple, orig_k: int, filt: str) -> int:
+def _check_inv(ll: torch.Tensor, details, steps: tuple, orig_k: int, filt: str, color: str = "none",
+               chroma_gain: float = 1.0) -> int:
     if filt not in _FILTERS:
         raise ValueError(f"filt must be one of {sorted(_FILTERS)}")
+    _check_color(ll, color, chroma_gain)
     k = len(steps)
     if not 1 <= k <= 3 or len(details) != k:
         raise ValueError("1..3 levels per pass; details must match steps")
@@ -244,17 +276,18 @@ def _dequantize(q: torch.Tensor, step: float, offset: float) -> torch.Tensor:
 
 
 def idwt97_multilevel_dequant_plain(ll: torch.Tensor, details, steps: tuple, emit_u8: bool = False,
-                                    orig_k: int | None = None, filt: str = "cdf97",
-                                    recon_offset: float = 0.5) -> torch.Tensor:
+                                    orig_k: int | None = None, filt: str = "cdf97", recon_offset: float = 0.5,
+                                    color: str = "none", chroma_gain: float = 1.0) -> torch.Tensor:
     """Dequantize and invert :func:`dwt97_multilevel_quant_plain` on the
     same tile grid. ``details`` is ``[(lh, hl, hh), ...]`` fine to coarse,
     ``len(details) == len(steps)``. The LL is edge-padded to the coarse grid
     and each band edge-padded or cropped to its level's grid. For a partial
     pass of a progressive decode, ``orig_k`` is the depth of the encoder's
-    pass, whose tiles set the clamps. float32 out, or uint8 (clip, truncate)
+    pass, whose tiles set the clamps. ``color='ict'``: the codec's inverse
+    ICT with ``chroma_gain`` last. float32 out, or uint8 (clip, truncate)
     with ``emit_u8``."""
     orig_k = len(steps) if orig_k is None else orig_k
-    k = _check_inv(ll, details, steps, orig_k, filt)
+    k = _check_inv(ll, details, steps, orig_k, filt, color, chroma_gain)
     steps = _band_steps3(steps)
     lead, (ch, cw) = tuple(ll.shape[:-2]), ll.shape[-2:]
     chp, cwp, th_c, tw_c = _coarse_grid(ch, cw, orig_k)
@@ -265,17 +298,22 @@ def idwt97_multilevel_dequant_plain(ll: torch.Tensor, details, steps: tuple, emi
                                          -2, chp * m), -1, cwp * m)[:, : chp * m, : cwp * m]
                  for b, s in zip(details[lvl - 1], steps[lvl - 1])]
         x = _tilewise(lambda *t: _level_inv(*t, filt), x, th_c * m, tw_c * m, *bands)
+    x = x.reshape(lead + x.shape[-2:])
+    if color == "ict":  # then the codec's _emit_native
+        x = ict_inv_codec(x, chroma_gain)
+        return torch.clamp(x, 0, 255).to(torch.uint8) if emit_u8 else x
     if emit_u8:
         x = torch.clamp(x, 0, 255).to(torch.int32).to(torch.uint8)
-    return x.reshape(lead + x.shape[-2:])
+    return x
 
 
 def _launch_inv(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, orig_k: int, filt: str,
-                recon_offset: float, stream: int) -> torch.Tensor:
+                recon_offset: float, stream: int, color: str = "none", chroma_gain: float = 1.0) -> torch.Tensor:
     """K9's launches through ``lib`` on ``stream`` (``ll`` float32, codes
     int16, checked; ``steps`` in (lh, hl, hh) triples): one per level,
-    coarse to fine."""
+    coarse to fine; the last applies ``color`` and ``emit_u8``."""
     k = len(steps)
+    cin = ll.shape[-3] if color == "ict" else 1
     c, ch, cw = _planes(ll.shape), ll.shape[-2], ll.shape[-1]
     chp, cwp, th_c, tw_c = _coarse_grid(ch, cw, orig_k)
     cur = ll
@@ -288,7 +326,8 @@ def _launch_inv(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, ori
         rc = lib.wicca_lift97_inv_level(cur.data_ptr(), cur.shape[-2], cur.shape[-1], lh.data_ptr(), hl.data_ptr(),
                                         hh.data_ptr(), lh.shape[-2], lh.shape[-1], _FILTERS[filt], c, hb, wb,
                                         th_c * m, tw_c * m, *(_f32(s) for s in steps[lvl - 1]),
-                                        _f32(recon_offset), out.data_ptr(), int(u8), stream)
+                                        _f32(recon_offset), out.data_ptr(), int(u8),
+                                        _COLORS[color] if lvl == 1 else 0, cin, _f32(chroma_gain), stream)
         _build.check(rc, "idwt97_multilevel_dequant")
         LAUNCHES["idwt97_multilevel_dequant"] += 1
         cur = out
@@ -296,17 +335,20 @@ def _launch_inv(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, ori
 
 
 def idwt97_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: bool = False,
-                              orig_k: int | None = None, filt: str = "cdf97", recon_offset: float = 0.5) -> torch.Tensor:
+                              orig_k: int | None = None, filt: str = "cdf97", recon_offset: float = 0.5,
+                              color: str = "none", chroma_gain: float = 1.0) -> torch.Tensor:
     """K9: :func:`idwt97_multilevel_dequant_plain` as one launch per level;
-    the dequantization is the kernel's prologue, and the padding and
-    cropping of the LL and the bands are index clamps in it."""
+    the dequantization is the kernel's prologue, the padding and cropping of
+    the LL and the bands are index clamps in it, and the inverse ICT
+    (``color='ict'``) and the uint8 emit the last launch's epilogue."""
     orig_k = len(steps) if orig_k is None else orig_k
-    _check_inv(ll, details, steps, orig_k, filt)
+    _check_inv(ll, details, steps, orig_k, filt, color, chroma_gain)
     if ll.device.type == "cpu":
-        return idwt97_multilevel_dequant_plain(ll, details, steps, emit_u8, orig_k, filt, recon_offset)
+        return idwt97_multilevel_dequant_plain(ll, details, steps, emit_u8, orig_k, filt, recon_offset, color,
+                                               chroma_gain)
     ll = contiguous_aligned(ll.to(torch.float32))
     details = [tuple(contiguous_aligned(b) for b in bands) for bands in details]
     _require_cuda("idwt97_multilevel_dequant", ll, *(b for bands in details for b in bands))
     with torch.cuda.device(ll.device):
         return _launch_inv(_build.library(), ll, details, _band_steps3(steps), emit_u8, orig_k, filt, recon_offset,
-                           _stream(ll))
+                           _stream(ll), color, chroma_gain)
