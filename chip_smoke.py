@@ -14,14 +14,17 @@ Phases, each fatal on failure:
    input, int8 and int16 codes, non-power-of-two steps, recon offsets and
    uint8 emission; for K4/K5 shapes past the (512, 1024) tile caps, int8,
    int16 and float details; for K6/K7 shapes that cross tile seams in each
-   direction, both filters, k = 1-3, uint8 and int32 input, int32 and uint8
+   direction and a 600 x 1100 frame where units' chunks of rows meet inside
+   tiles, both filters, k = 1-3, uint8 and int32 input, int32 and uint8
    output, partial passes (orig_k > k); for K8/K9 the same seams, a batched
-   odd shape, a tile of one pair and a 600 x 1100 frame where blocks meet
+   odd shape, a tile of one pair and the 600 x 1100 frame, where blocks meet
    inside tiles both ways, both filters (cdf97, db2), k = 1-3, uint8 and
    float32 input, steps 1.0, 0.75 and per band (hh x 1.5), offsets 0.5 and
-   0.3, float32 and uint8 output, partial passes; and K8/K9 with the ICT
+   0.3, float32 and uint8 output, partial passes; K8/K9 with the ICT
    folded into their first and last launch (RGB and RGBA, chroma gain 1
-   and 2) against the codec's composition;
+   and 2) and K6/K7 with the RCT folded in the same way (RGB and RGBA, both
+   filters, uint8 and int32 in, int32 and uint8 out, partial passes),
+   against the codec's composition;
 3. the paths at full size on a 3x8704x6144 uint8 frame (bench.py's shape),
    each driven with the launch counters set to 0 just before and read just
    after:
@@ -33,7 +36,9 @@ Phases, each fatal on failure:
       all 15 planes (tile-padded shapes) and ``decode_at_level(st, 2)``
       equal to the plain path; the same with ``color='none'`` and with
       ``haar_int``; then (after the counters are read) a ``decode_region``
-      window across tile seams equal to the frame's crop;
+      window across tile seams equal to the frame's crop. ``rct`` runs
+      through the fold: K6's first launch reads the uint8 frame and applies
+      the RCT, K7's last launch applies the inverse RCT and emits uint8;
    c. the single-level ops: ``ops.dwt_level_quant`` -> ``idwt_level_dequant``
       on the frame as float32 at step 1.0, equal to the plain twins;
    d. the lossy float-lifting path: ``encode(levels=5, QuantSpec(1.0),
@@ -85,8 +90,8 @@ KERNELS = {
     "idwt_multilevel_dequant": ("wicca_tpu/ops/dwt_pallas.py:498", HAAR_SOURCE, "idwt_dequant_kernel"),
     "dwt_level_quant": ("wicca_tpu/ops/dwt_pallas.py:230", HAAR_SOURCE, "haar_level_fwd_kernel"),
     "idwt_level_dequant": ("wicca_tpu/ops/dwt_pallas.py:291", HAAR_SOURCE, "haar_level_inv_kernel"),
-    "dwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:140", LIFTING_SOURCE, "lift_fwd_level_kernel"),
-    "idwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:210", LIFTING_SOURCE, "lift_inv_level_kernel"),
+    "dwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:140", LIFTING_SOURCE, "lift_fwd_lines_kernel"),
+    "idwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:210", LIFTING_SOURCE, "lift_inv_lines_kernel"),
     "dwt97_multilevel_quant": ("wicca_tpu/ops/dwt97_pallas.py:155", FLOAT_SOURCE, "lift97_fwd_level_kernel"),
     "idwt97_multilevel_dequant": ("wicca_tpu/ops/dwt97_pallas.py:220", FLOAT_SOURCE, "lift97_inv_level_kernel"),
 }
@@ -280,7 +285,7 @@ def phase_kernels_vs_plain(rng, dev) -> int:
                 check_equal(f"{what} inverse", ops.idwt_level_dequant(*bands, step, quantize),
                             ops.idwt_level_dequant_plain(*bands, step, quantize))
                 n += 1
-    return n + lifting_vs_plain(rng, dev) + ict_fold_vs_plain(rng, dev)
+    return n + lifting_vs_plain(rng, dev) + ict_fold_vs_plain(rng, dev) + rct_fold_vs_plain(rng, dev)
 
 
 FLOAT_STEP_SETS = {
@@ -293,8 +298,9 @@ FLOAT_STEP_SETS = {
 def lifting_vs_plain(rng, dev) -> int:
     """K6/K7 and K8/K9 against their twins: shapes that cross tile seams in
     each direction (1100 pads to a multiple of 2**k, then to the tile
-    multiple), a batched odd shape (and for K8/K9 a tile of one pair, and a
-    600 x 1100 frame where blocks' regions meet inside tiles both ways), both
+    multiple), a batched odd shape, a 600 x 1100 frame where K6/K7's chunks
+    of rows and K8/K9's blocks' regions meet inside tiles both ways (and for
+    K8/K9 a tile of one pair), both
     filters of each, k = 1-3, uint8 input and int32 (K6) or float32 (K8)
     input, partial passes with orig_k > k. K7 emits int32 and uint8; K8/K9
     run three step sets and K9 emits float32 and uint8 at two offsets."""
@@ -313,7 +319,8 @@ def lifting_vs_plain(rng, dev) -> int:
                                                                          filt=filt),
             filters=("legall5.3", "haar_int"), step_sets={"levels": lambda k: (None,) * k},
             second=("i32", lambda shape: rng.integers(-300, 300, shape).astype(np.int32)),
-            inverses=((False, None), (True, None)), shapes=((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23))),
+            inverses=((False, None), (True, None)),
+            shapes=((2, 1100, 96), (1, 72, 1100), (2, 3, 37, 23), (1, 600, 1100))),
         "float": dict(
             fwd=(fops.dwt97_multilevel_quant, fops.dwt97_multilevel_quant_plain),
             call_fwd=lambda f, x, s, filt: f(x, s, filt),
@@ -393,6 +400,44 @@ def ict_fold_vs_plain(rng, dev) -> int:
                                 check_equal(f"{what} partial", fops.idwt97_multilevel_dequant(*args),
                                             fops.idwt97_multilevel_dequant_plain(*args))
                                 n += 1
+    return n
+
+
+def rct_fold_vs_plain(rng, dev) -> int:
+    """K6 with the RCT in its first launch and K7 with the inverse RCT in
+    its last against the codec's composition (the RCT, then the plain
+    levels; the plain levels, then the inverse RCT and the clip): RGB and
+    RGBA, a frame across tile seams where chunks meet inside tiles and a
+    batched odd shape, both filters, k = 1-3, uint8 and int32 input, int32
+    and uint8 output, a partial pass (orig_k > k)."""
+    from wicca_tpu_torch.core.pad import pad_to_multiple
+    from wicca_tpu_torch.ops import dwt53_cuda as lops
+
+    n = 0
+    for channels in (3, 4):
+        for shape in ((channels, 600, 1100), (2, channels, 37, 23)):
+            srcs = (("u8", torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)),
+                    ("i32", torch.from_numpy(rng.integers(-300, 300, shape).astype(np.int32)).to(dev)))
+            for k in (1, 2, 3):
+                for src_name, src in srcs:
+                    x = pad_to_multiple(src, 1 << k).contiguous()
+                    for filt in ("legall5.3", "haar_int"):
+                        what = f"rct fold {filt} k={k} {src_name}{tuple(x.shape)}"
+                        ll, dets = lops.dwt53_multilevel(x, k, filt, "rct")
+                        pll, pdets = lops.dwt53_multilevel_plain(x, k, filt, "rct")
+                        check_equal(f"{what} ll", ll, pll)
+                        for i, (a, b) in enumerate(zip(flat(dets), flat(pdets))):
+                            check_equal(f"{what} band {i}", a, b)
+                        for emit_u8 in (False, True):
+                            args = (ll, dets, k, emit_u8, k, filt, "rct")
+                            check_equal(f"{what} inverse emit_u8={emit_u8}", lops.idwt53_multilevel(*args),
+                                        lops.idwt53_multilevel_plain(*args))
+                            n += 1
+                        if k > 1:
+                            args = (ll, dets[1:], k - 1, True, k, filt, "rct")
+                            check_equal(f"{what} partial", lops.idwt53_multilevel(*args),
+                                        lops.idwt53_multilevel_plain(*args))
+                            n += 1
     return n
 
 
@@ -716,43 +761,57 @@ def level_passes(x):
 def lifting_passes(x):
     """K6/K7 at the lossless path's shapes. The headline (legall5.3, rct)
     run is encode, decode and decode_at_level(st, 2): K6 runs its two passes
-    once; K7 runs levels 5-4 twice (in decode and in decode_at_level), levels
-    3-1 once and the partial level 3 of 3 once. The uint8 regimes of
-    color='none' are timed beside them."""
+    once, the first from the uint8 frame with the RCT folded into its first
+    launch; K7 runs levels 5-4 twice (in decode and in decode_at_level),
+    levels 3-1 to uint8 with the inverse RCT folded into its last launch
+    once, and the partial level 3 of 3 (to int32, with the inverse RCT) once.
+    Timed beside them: the uint8 regimes of color='none', and the passes
+    from and to int32 that PR 4's design ran for `rct`."""
     from wicca_tpu_torch.core.color import rct_fwd
     from wicca_tpu_torch.ops import dwt53_cuda as lops
 
-    yuv = rct_fwd(x)
-    ll3, d13 = lops.dwt53_multilevel(yuv, 3)
+    rct = dict(color="rct")
+    ll3, d13 = lops.dwt53_multilevel(x, 3, **rct)
     ll5, d45 = lops.dwt53_multilevel(ll3, 2)
-    rec3 = lops.idwt53_multilevel(ll5, d45, 2)[..., : ll3.shape[-2], : ll3.shape[-1]].contiguous()
-    rec = lops.idwt53_multilevel(rec3, d13, 3)
-    part = lops.idwt53_multilevel(rec3, d13[2:], 1, orig_k=3)
+    full = lops.idwt53_multilevel(ll5, d45, 2)
+    rec3 = full[..., : ll3.shape[-2], : ll3.shape[-1]].contiguous()
+    rec = lops.idwt53_multilevel(rec3, d13, 3, emit_u8=True, **rct)
+    part = lops.idwt53_multilevel(rec3, d13[2:], 1, orig_k=3, **rct)
+    yuv = rct_fwd(x)
+    fll3, fd13 = lops.dwt53_multilevel(yuv, 3)
+    frec = lops.idwt53_multilevel(fll3, fd13, 3)
     ull3, ud13 = lops.dwt53_multilevel(x, 3)
     urec = lops.idwt53_multilevel(ull3, ud13, 3, emit_u8=True)
-    full = lops.idwt53_multilevel(ll5, d45, 2)
+    n = x.numel()
+    rct_ops = 4 * n  # about four integer operations per sample each way
     return [
-        ("dwt53_multilevel", "levels 1-3 from i32", lambda: lops.dwt53_multilevel(yuv, 3),
-         lambda: lops.dwt53_multilevel_plain(yuv, 3), nbytes(yuv, ll3, *flat(d13)), lifting_ops(yuv.numel(), 3),
-         1),
+        ("dwt53_multilevel", "levels 1-3 from u8 + RCT (`rct`)", lambda: lops.dwt53_multilevel(x, 3, **rct),
+         lambda: lops.dwt53_multilevel_plain(x, 3, **rct), nbytes(x, ll3, *flat(d13)),
+         lifting_ops(n, 3) + rct_ops, 1),
         ("dwt53_multilevel", "levels 4-5 from i32", lambda: lops.dwt53_multilevel(ll3, 2),
          lambda: lops.dwt53_multilevel_plain(ll3, 2), nbytes(ll3, ll5, *flat(d45)), lifting_ops(ll3.numel(), 2),
          1),
-        ("dwt53_multilevel", "levels 1-3 from u8", lambda: lops.dwt53_multilevel(x, 3),
-         lambda: lops.dwt53_multilevel_plain(x, 3), nbytes(x, ull3, *flat(ud13)), lifting_ops(x.numel(), 3),
-         0),
+        ("dwt53_multilevel", "levels 1-3 from u8 (`none`)", lambda: lops.dwt53_multilevel(x, 3),
+         lambda: lops.dwt53_multilevel_plain(x, 3), nbytes(x, ull3, *flat(ud13)), lifting_ops(n, 3), 0),
+        ("dwt53_multilevel", "levels 1-3 from i32", lambda: lops.dwt53_multilevel(yuv, 3),
+         lambda: lops.dwt53_multilevel_plain(yuv, 3), nbytes(yuv, fll3, *flat(fd13)), lifting_ops(n, 3), 0),
         ("idwt53_multilevel", "levels 5-4 to i32", lambda: lops.idwt53_multilevel(ll5, d45, 2),
          lambda: lops.idwt53_multilevel_plain(ll5, d45, 2), nbytes(ll5, full, *flat(d45)),
          lifting_ops(full.numel(), 2), 2),
-        ("idwt53_multilevel", "levels 3-1 to i32", lambda: lops.idwt53_multilevel(rec3, d13, 3),
-         lambda: lops.idwt53_multilevel_plain(rec3, d13, 3), nbytes(rec3, rec, *flat(d13)),
-         lifting_ops(rec.numel(), 3), 1),
-        ("idwt53_multilevel", "levels 3-1 to u8", lambda: lops.idwt53_multilevel(ull3, ud13, 3, emit_u8=True),
+        ("idwt53_multilevel", "levels 3-1 + RCT to u8 (`rct`)",
+         lambda: lops.idwt53_multilevel(rec3, d13, 3, emit_u8=True, **rct),
+         lambda: lops.idwt53_multilevel_plain(rec3, d13, 3, emit_u8=True, **rct), nbytes(rec3, rec, *flat(d13)),
+         lifting_ops(rec.numel(), 3) + rct_ops, 1),
+        ("idwt53_multilevel", "levels 3-1 to u8 (`none`)", lambda: lops.idwt53_multilevel(ull3, ud13, 3, emit_u8=True),
          lambda: lops.idwt53_multilevel_plain(ull3, ud13, 3, emit_u8=True), nbytes(ull3, urec, *flat(ud13)),
          lifting_ops(urec.numel(), 3), 0),
-        ("idwt53_multilevel", "level 3 of 3 (decode_at_level)", lambda: lops.idwt53_multilevel(rec3, d13[2:], 1, orig_k=3),
-         lambda: lops.idwt53_multilevel_plain(rec3, d13[2:], 1, orig_k=3), nbytes(rec3, part, *flat(d13[2:])),
-         lifting_ops(part.numel(), 1), 1),
+        ("idwt53_multilevel", "levels 3-1 to i32", lambda: lops.idwt53_multilevel(fll3, fd13, 3),
+         lambda: lops.idwt53_multilevel_plain(fll3, fd13, 3), nbytes(fll3, frec, *flat(fd13)),
+         lifting_ops(frec.numel(), 3), 0),
+        ("idwt53_multilevel", "level 3 of 3, orig_k + RCT (`decode_at_level`)",
+         lambda: lops.idwt53_multilevel(rec3, d13[2:], 1, orig_k=3, **rct),
+         lambda: lops.idwt53_multilevel_plain(rec3, d13[2:], 1, orig_k=3, **rct), nbytes(rec3, part, *flat(d13[2:])),
+         lifting_ops(part.numel(), 1) + 4 * part.numel(), 1),
     ]
 
 

@@ -62,7 +62,8 @@ def variants(src: str) -> dict[str, str]:
     return {
         "base": src,
         "nolift": nolift,
-        "nolift_nostage": _sub(nolift, "    copy16_async(d, row + lo);", "    if (lo == -12345) copy16_async(d, row + lo);"),
+        "nolift_nostage": _sub(nolift, "    copy_async<16>(d, row + lo);",
+                               "    if (lo == -12345) copy_async<16>(d, row + lo);"),
         "nolift_nostore": nostore,
     }
 

@@ -126,6 +126,11 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         dwt53_cuda.idwt53_multilevel(ll, [(dets[0][0], dets[0][1], dets[0][2][..., :3])], 1)
     with pytest.raises(ValueError):
         dwt53_cuda.idwt53_multilevel(ll, [tuple(b.to(torch.int32) for b in dets[0])], 1)
+    for color in ("rct", "ict"):  # rct needs 3 or 4 planes; ict is not reversible
+        with pytest.raises(ValueError):
+            dwt53_cuda.dwt53_multilevel(torch.zeros((2, 8, 8), dtype=torch.uint8), 1, color=color)
+        with pytest.raises(ValueError):
+            dwt53_cuda.idwt53_multilevel(ll, dets, 1, color=color)
     assert wicca_tpu_torch.__all__
 
 
@@ -159,6 +164,10 @@ def test_kernels_equal_plain_twins_on_the_card():
         got = dwt53_cuda.idwt53_multilevel(ll, dets, 3, emit_u8=True, filt=filt)
         assert torch.equal(got, dwt53_cuda.idwt53_multilevel_plain(ll, dets, 3, emit_u8=True, filt=filt))
         assert torch.equal(got, x)
+        ll, dets = dwt53_cuda.dwt53_multilevel(x, 3, filt, "rct")  # the RCT folded into K6/K7
+        pll, pdets = dwt53_cuda.dwt53_multilevel_plain(x, 3, filt, "rct")
+        assert torch.equal(ll, pll) and all(torch.equal(a, b) for da, db in zip(dets, pdets) for a, b in zip(da, db))
+        assert torch.equal(dwt53_cuda.idwt53_multilevel(ll, dets, 3, emit_u8=True, filt=filt, color="rct"), x)
     for filt in ("cdf97", "db2"):
         ll, dets = dwt97_cuda.dwt97_multilevel_quant(x, steps, filt)
         pll, pdets = dwt97_cuda.dwt97_multilevel_quant_plain(x, steps, filt)

@@ -119,18 +119,61 @@ def test_lifting_kernels_match_plain(host_lib, filt, k, src):
     for shape in [(2, 1104, 96), (1, 72, 1104), (2, 3, 40, 24)]:
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8) if src == "u8"
                              else rng.integers(-300, 300, shape).astype(np.int32))
-        ll, dets = dwt53_cuda._launch_fwd(host_lib, x, k, filt, 0)
-        pll, pdets = dwt53_cuda.dwt53_multilevel_plain(x, k, filt)
-        _equal(ll, pll)
-        for bands, pbands in zip(dets, pdets):
-            for a, b in zip(bands, pbands):
-                _equal(a, b)
-        for emit_u8 in (False, True):
-            _equal(dwt53_cuda._launch_inv(host_lib, ll, dets, k, emit_u8, k, filt, 0),
-                   dwt53_cuda.idwt53_multilevel_plain(ll, dets, k, emit_u8, k, filt))
+        _lifting_roundtrip(host_lib, x, k, filt)
+
+
+def _lifting_roundtrip(host_lib, x, k, filt, color="none"):
+    """K6 on x and K7 back (int32 and uint8 out, and the partial passes an
+    encoder's k-level pass allows), each equal to its plain twin."""
+    ll, dets = dwt53_cuda._launch_fwd(host_lib, x, k, filt, 0, color)
+    pll, pdets = dwt53_cuda.dwt53_multilevel_plain(x, k, filt, color)
+    _equal(ll, pll)
+    for bands, pbands in zip(dets, pdets):
+        for a, b in zip(bands, pbands):
+            _equal(a, b)
+    for emit_u8 in (False, True):
+        _equal(dwt53_cuda._launch_inv(host_lib, ll, dets, k, emit_u8, k, filt, 0, color),
+               dwt53_cuda.idwt53_multilevel_plain(ll, dets, k, emit_u8, k, filt, color))
         for kk in range(1, k):
-            _equal(dwt53_cuda._launch_inv(host_lib, ll, dets[k - kk:], kk, False, k, filt, 0),
-                   dwt53_cuda.idwt53_multilevel_plain(ll, dets[k - kk:], kk, False, k, filt))
+            _equal(dwt53_cuda._launch_inv(host_lib, ll, dets[k - kk:], kk, emit_u8, k, filt, 0, color),
+                   dwt53_cuda.idwt53_multilevel_plain(ll, dets[k - kk:], kk, emit_u8, k, filt, color))
+
+
+@pytest.mark.parametrize("src", ["u8", "i32"])
+@pytest.mark.parametrize("filt", ["legall5.3", "haar_int"])
+def test_lifting_kernels_chunks_meet_inside_tiles(host_lib, filt, src):
+    """K6 and K7 on a frame where several units' chunks of rows meet inside
+    a tile and several warps' strips share a tile row, at every level, and
+    tile seams cross both ways (600 rows pad to two 512-row tiles, 1100 and
+    1104 columns to two 1024-column tiles): k = 2 on 1100 columns (uint8
+    rows not 16-byte aligned: scalar loads) and k = 3 on 1104 (vector
+    loads); uint8 and int32 in and out, partial passes."""
+    rng = np.random.default_rng(40)
+    for k, w in ((2, 1100), (3, 1104)):
+        shape = (1, 600, w)
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8) if src == "u8"
+                             else rng.integers(-300, 300, shape).astype(np.int32))
+        _lifting_roundtrip(host_lib, x, k, filt)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_rct_folded_lifting_kernels_match_plain(host_lib, channels):
+    """K6 with the RCT in its first level and K7 with the inverse RCT in its
+    last, RGB and RGBA (alpha lifted as it is), from uint8 and int32, to
+    int32 and uint8, both filters at k = 1-3 on a batched small shape, and
+    across a tile seam (1100 columns: unaligned rows, read directly; 1104:
+    aligned, through the rings); partial passes. The
+    twins are the codec's composition (the RCT, then the plain levels; the
+    plain levels, then the inverse RCT and the clip)."""
+    rng = np.random.default_rng(50 + channels)
+    cases = [(filt, k, (2, channels, 24, 40)) for filt in ("legall5.3", "haar_int") for k in (1, 2, 3)]
+    seams = [("legall5.3", 2, (channels, 40, 1100)), ("legall5.3", 3, (channels, 80, 1104)),
+             ("haar_int", 3, (channels, 80, 1104))]
+    for filt, k, shape in cases + seams:
+        for src in ("u8", "i32"):
+            x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8) if src == "u8"
+                                 else rng.integers(-300, 300, shape).astype(np.int32))
+            _lifting_roundtrip(host_lib, x, k, filt, "rct")
 
 
 def test_lossless_pass_structure_matches_plain(host_lib):

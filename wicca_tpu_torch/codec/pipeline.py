@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch._device import as_tensor
-from wicca_tpu_torch.core.color import ict_fwd_codec, ict_inv_codec, join_alpha, rct_fwd, rct_inv, split_alpha
+from wicca_tpu_torch.core.color import ict_fwd_codec, ict_inv_codec, rct_fwd_codec, rct_inv_codec
 from wicca_tpu_torch.core.lifting import dwt2_level_lifting, idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
 from wicca_tpu_torch.core.quant import QuantSpec, dequantize_deadzone, quantize_deadzone
@@ -203,11 +203,12 @@ def encode(
         wavelet = "legall5.3"
     orig = (x.shape[-2], x.shape[-1])
     x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
-    # the tiled float kernels fold the ICT into their first level (K8)
-    fold = color == "ict" and bit_depth == 8 and wavelet in _FLOAT_TILED
-    if color == "rct":
-        rgb, extra = split_alpha(x)  # alpha bypasses the rotation
-        x = join_alpha(rct_fwd(rgb), extra)
+    # the tiled kernels fold the color transform into their first level:
+    # the ICT into K8's, the RCT into K6's
+    fold = bit_depth == 8 and ((color == "ict" and wavelet in _FLOAT_TILED)
+                               or (color == "rct" and wavelet in _INT_TILED))
+    if color == "rct" and not fold:
+        x = rct_fwd_codec(x)  # alpha bypasses the rotation
     elif color == "ict" and not fold:
         x = ict_fwd_codec(x, chroma_gain)
     h_sem, w_sem = x.shape[-2], x.shape[-1]
@@ -231,7 +232,8 @@ def encode(
                                                   color="ict" if fold and lvl == 0 else "none",
                                                   chroma_gain=chroma_gain)
             else:
-                ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet)
+                ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet,
+                                            color="rct" if fold and lvl == 0 else "none")
             details.extend(dets)
             lvl += k
         if wavelet in ("haar", "haar_int"):
@@ -294,10 +296,12 @@ def _fused(stream: CodeStream) -> bool:
 
 def _folds_color(stream: CodeStream, target_level: int) -> bool:
     """Whether the inverse passes down to ``target_level`` undo the color
-    transform themselves: the ICT of tiled 8-bit float-wavelet streams, in
-    the last launch of K9."""
-    return (stream.color == "ict" and _fused(stream) and stream.wavelet in _FLOAT_TILED
-            and target_level < stream.levels)
+    transform themselves: the ICT of 8-bit tiled float-wavelet streams, in
+    the last launch of K9, and the RCT of 8-bit integer-wavelet streams, in
+    the last launch of K7."""
+    return _fused(stream) and target_level < stream.levels and (
+        (stream.color == "ict" and stream.wavelet in _FLOAT_TILED)
+        or (stream.color == "rct" and stream.wavelet in _INT_TILED))
 
 
 def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float):
@@ -305,8 +309,9 @@ def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_
     A pass that crosses the target inverts only its coarse part; for the
     lifting kernels ``orig_k`` then keeps the encoder's tile clamps.
     ``emit_u8`` clips and casts inside the pass that reaches the target,
-    which also undoes the ICT where :func:`_folds_color` says so."""
-    color = "ict" if _folds_color(stream, target_level) else "none"
+    which also undoes the color transform where :func:`_folds_color` says
+    so."""
+    color = stream.color if _folds_color(stream, target_level) else "none"
     x = stream.ll
     hi = stream.levels
     for k in reversed(_pass_sizes(stream.levels)):
@@ -326,7 +331,8 @@ def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_
                                           recon_offset=recon_offset, color=color if last else "none",
                                           chroma_gain=stream.chroma_gain)
         else:
-            x = idwt53_multilevel(x, dets, len(dets), emit_u8=u8, orig_k=k, filt=_INT_TILED[stream.wavelet])
+            x = idwt53_multilevel(x, dets, len(dets), emit_u8=u8, orig_k=k, filt=_INT_TILED[stream.wavelet],
+                                  color=color if last else "none")
         hi = start
     return x
 
@@ -359,8 +365,7 @@ def _undo_color(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
     if stream.color == "none":
         return x
     if stream.color == "rct":
-        yuv, extra = split_alpha(x)  # alpha was never rotated
-        return join_alpha(rct_inv(yuv), extra)
+        return rct_inv_codec(x)  # alpha was never rotated
     return ict_inv_codec(x, stream.chroma_gain)
 
 
@@ -377,7 +382,7 @@ def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5)
     """CodeStream -> reconstructed image (original dims): float32, or int32
     for the integer wavelets; with ``emit_u8`` the stream's native unsigned
     type (uint8, clipped and cast inside the finest fused pass when no color
-    transform follows or the pass undoes the ICT itself; uint16 for
+    transform follows or the pass undoes it itself; uint16 for
     high-bit-depth streams). ``recon_offset``
     is the deadzone reconstruction point of lossy codes as a fraction of the
     bin (0.5 = midpoint). Runs where the stream's tensors lie."""

@@ -7,8 +7,9 @@
 * ICT — irreversible BT.601 YCbCr (lossy path), float32.
 
 All functions take planar ``(..., 3, H, W)`` tensors, channel axis third
-from last; the codec's steps (``ict_fwd_codec``/``ict_inv_codec``) also
-take RGBA, whose alpha plane bypasses the rotation.
+from last; the codec's steps (``rct_fwd_codec``/``rct_inv_codec``,
+``ict_fwd_codec``/``ict_inv_codec``) also take RGBA, whose alpha plane
+bypasses the rotation.
 """
 
 from __future__ import annotations
@@ -72,6 +73,19 @@ def join_alpha(rgb: torch.Tensor, extra) -> torch.Tensor:
 def chroma_factors(gains: tuple[float, float, float], like: torch.Tensor) -> torch.Tensor:
     """Per-plane float32 factors (Y, Cb, Cr) that broadcast over (..., 3, H, W)."""
     return torch.tensor(gains, dtype=torch.float32, device=like.device).reshape(3, 1, 1)
+
+
+def rct_fwd_codec(x: torch.Tensor) -> torch.Tensor:
+    """The codec's forward reversible step: planar RGB or RGBA -> (Y, U, V)
+    int32, alpha carried as int32."""
+    rgb, extra = split_alpha(x)
+    return join_alpha(rct_fwd(rgb), extra)
+
+
+def rct_inv_codec(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`rct_fwd_codec` (int32 RGB or RGBA)."""
+    yuv, extra = split_alpha(x)
+    return join_alpha(rct_inv(yuv), extra)
 
 
 def ict_fwd_codec(x: torch.Tensor, chroma_gain: float = 1.0) -> torch.Tensor:

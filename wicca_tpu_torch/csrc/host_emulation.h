@@ -22,9 +22,13 @@
 //                               missing barrier changes a result. A block
 //                               whose threads do not all meet the same
 //                               barriers aborts.
-// cp.async is a plain copy and its commit and wait no-ops (copy16_async,
-// async_commit, async_wait); the occupancy queries describe a card of 2 SMs
-// that hold 2 blocks each, so persistent blocks walk several units.
+// cp.async (copy_async, async_commit, async_wait) is deferred as on the
+// card, where a copy lands at some time before the wait that covers it: each
+// thread keeps its copies, grouped by commit, and performs a group only when
+// an async_wait<N> leaves fewer than N+1 groups pending (or when the thread
+// ends), so shared memory read before the right wait still holds what was
+// there before, and a test fails. The occupancy queries describe a card of 2
+// SMs that hold 2 blocks each, so persistent blocks walk several units.
 #pragma once
 
 #include <stdint.h>
@@ -77,8 +81,44 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t
   return cudaSuccess;
 }
 
+// The cp.async copies of one thread: the open group, then the committed
+// groups, oldest first.
+struct WiccaAsync {
+  struct Copy {
+    void* dst;
+    const void* src;
+    size_t n;
+  };
+  std::vector<Copy> open;
+  std::vector<std::vector<Copy>> groups;
+
+  void perform(size_t keep) {  // every committed group but the newest keep
+    while (groups.size() > keep) {
+      for (const Copy& c : groups.front()) memcpy(c.dst, c.src, c.n);
+      groups.erase(groups.begin());
+    }
+  }
+  void finish() {
+    groups.push_back(open);
+    open.clear();
+    perform(0);
+  }
+};
+
+inline thread_local WiccaAsync* wicca_async = nullptr;  // the running thread's
+
+inline void wicca_copy_async(void* dst, const void* src, size_t n) { wicca_async->open.push_back({dst, src, n}); }
+inline void wicca_async_commit() {
+  wicca_async->groups.push_back(wicca_async->open);
+  wicca_async->open.clear();
+}
+inline void wicca_async_wait(size_t keep) { wicca_async->perform(keep); }
+
 template <typename F>
 void wicca_emulate_launch(dim3 grid, dim3 block, F&& thread) {
+  WiccaAsync* outer = wicca_async;
+  WiccaAsync copies;
+  wicca_async = &copies;
   gridDim = grid;
   blockDim = block;
   for (unsigned bz = 0; bz < grid.z; ++bz)
@@ -90,7 +130,9 @@ void wicca_emulate_launch(dim3 grid, dim3 block, F&& thread) {
               blockIdx = {bx, by, bz};
               threadIdx = {tx, ty, tz};
               thread();
+              copies.finish();
             }
+  wicca_async = outer;
 }
 
 // Fibers. On x86-64 a switch saves the callee-saved registers on the
@@ -111,6 +153,7 @@ struct WiccaBlock {
   static constexpr size_t kStack = 64 * 1024;
   std::vector<char> stacks;
   std::vector<char> done;
+  std::vector<WiccaAsync> copies;  // each thread's cp.async copies
   unsigned cur = 0;
   void (*body)(void*) = nullptr;
   void* arg = nullptr;
@@ -136,6 +179,7 @@ inline void wicca_yield(WiccaBlock* b) {
 
 inline void wicca_resume(WiccaBlock* b, unsigned t) {
   b->cur = t;
+  wicca_async = &b->copies[t];
 #if defined(__x86_64__)
   wicca_switch(&b->sched_sp, b->sp[t]);
 #else
@@ -193,12 +237,14 @@ void wicca_emulate_block_launch(dim3 grid, dim3 block, size_t smem_bytes, F&& th
 #endif
   b.stacks.resize(nt * WiccaBlock::kStack);
   b.done.assign(nt, 0);
+  b.copies.assign(nt, WiccaAsync());
   b.body = [](void* f) { (*static_cast<F*>(f))(); };
   b.arg = &thread;
   std::vector<unsigned char> smem(smem_bytes + 16);
   unsigned char* aligned = smem.data() + (16 - reinterpret_cast<uintptr_t>(smem.data()) % 16) % 16;
   WiccaBlock* outer = wicca_block;
   unsigned char* outer_smem = wicca_dyn_smem;
+  WiccaAsync* outer_async = wicca_async;
   wicca_block = &b;
   wicca_dyn_smem = aligned;
   gridDim = grid;
@@ -220,7 +266,10 @@ void wicca_emulate_block_launch(dim3 grid, dim3 block, size_t smem_bytes, F&& th
             wicca_resume(&b, t);
           }
           unsigned finished = 0;
-          for (unsigned t = 0; t < nt; ++t) finished += b.done[t];
+          for (unsigned t = 0; t < nt; ++t) {
+            if (b.done[t]) b.copies[t].finish();
+            finished += b.done[t];
+          }
           if (finished == nt) break;
           if (finished != 0) {
             fprintf(stderr, "block (%u, %u, %u): %u of %u threads returned while the others wait at a barrier\n",
@@ -231,4 +280,5 @@ void wicca_emulate_block_launch(dim3 grid, dim3 block, size_t smem_bytes, F&& th
       }
   wicca_block = outer;
   wicca_dyn_smem = outer_smem;
+  wicca_async = outer_async;
 }

@@ -42,23 +42,32 @@ inline dim3 grid_for(int64_t planes, int64_t rows, int64_t cols) {
               static_cast<unsigned>(planes < 65535 ? planes : 65535));
 }
 
-// 16 bytes from device memory into shared memory without passing through
-// registers (cp.async.cg: cached in L2 only). Both addresses 16-byte aligned.
-WICCA_D void copy16_async(void* smem, const void* gmem) {
+// N = 4, 8 or 16 bytes from device memory into shared memory without
+// passing through registers (cp.async; 16 bytes cached in L2 only, 4 and 8
+// in L1 too). Both addresses N-byte aligned. The memory clobber keeps the
+// compiler from moving this thread's earlier reads of the destination below
+// the copy.
+template <int N>
+WICCA_D void copy_async(void* smem, const void* gmem) {
 #if defined(__CUDA_ARCH__)
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-#else
-  memcpy(smem, gmem, 16);
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N) : "memory");
+#elif !defined(__CUDACC__)  // the host build (host_emulation.h)
+  wicca_copy_async(smem, gmem, N);
 #endif
 }
 
-// Close this thread's group of copy16_async calls; async_wait<N> waits
-// until at most N of its groups are still in flight. A __syncthreads() must
-// follow before other threads read what the group copied.
+// Close this thread's group of copy_async calls; async_wait<N> waits until
+// at most N of its groups are still in flight. A __syncthreads() must follow
+// before other threads read what the group copied.
 WICCA_D void async_commit() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+#elif !defined(__CUDACC__)  // the host build (host_emulation.h)
+  wicca_async_commit();
 #endif
 }
 
@@ -66,6 +75,8 @@ template <int N>
 WICCA_D void async_wait() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#elif !defined(__CUDACC__)  // the host build (host_emulation.h)
+  wicca_async_wait(N);
 #endif
 }
 

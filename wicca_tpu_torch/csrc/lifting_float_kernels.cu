@@ -121,7 +121,7 @@ WICCA_D void stage_rows(T* dst, int rows, int64_t e0, int64_t e1, RowOf row_of, 
     if (lo > e1 || lo + V - 1 < e0) continue;
     T* d = dst + r * CAP + k * V;
 #if defined(__CUDA_ARCH__)
-    copy16_async(d, row + lo);
+    copy_async<16>(d, row + lo);
 #else
     for (int u = 0; u < V; ++u)
       if (lo + u >= e0 && lo + u <= e1) d[u] = row[lo + u];

@@ -1,25 +1,22 @@
 // The lifting filters of the tile-local kernels, one struct each, so that a
 // kernel takes its filter as a template parameter.
 //
-// Reversible filters (lifting_kernels.cu, K6/K7). A filter lifts a strip of
-// N neighbouring polyphase pairs, n0 .. n0+N-1, of a tile-local signal of 2m
-// samples whose ends replicate (index clamp), as wicca_tpu/core/lifting.py
-// does at every tile edge of wicca_tpu/ops/dwt53_pallas.py:
+// Reversible filters (lifting_kernels.cu, K6/K7). A filter is its two
+// lifting steps, each on neighbouring polyphase samples of a tile-local
+// signal of 2m samples whose ends replicate (index clamp), as
+// wicca_tpu/core/lifting.py does at every tile edge of
+// wicca_tpu/ops/dwt53_pallas.py:
 //
-//   fwd_taps<N>(n0, m, t)      the 2N+3 sample positions the strip needs,
-//                              each in [0, 2m)
-//   fwd<N>(w, first, s, d)     its low and high coefficients from the
-//                              samples w[] at those positions (first: n0 == 0)
-//   inv_taps<N>(n0, m, t)      the N+2 coefficient positions that samples
-//                              2n0 .. 2n0+2N-1 need, each in [0, m)
-//   inv<N>(s, d, last, x)      those 2N samples from the coefficients at
-//                              those positions (last: n0 + N == m)
+//   predict(e, o, e1)    d[n] from e[n], o[n], e[n+1]
+//   update(e, dp, d)     s[n] from e[n], d[n-1], d[n]
+//   unupdate(s, dp, d)   e[n] from s[n], d[n-1], d[n]
+//   unpredict(e, d, e1)  o[n] from e[n], d[n], e[n+1]
 //
-// Positions a filter does not read are still valid indices, so loading them
-// is harmless, and the compiler drops those loads. The value type V is
-// int32_t, or I2 to carry two signals through the same steps (the vertical
-// pass lifts the horizontal low and high bands at once). Integer arithmetic
-// only; >> is an arithmetic shift (floor), as in jnp.
+// with e[m] -> e[m-1] and d[-1] -> d[0] at the tile's ends (the callers
+// pass those). kHalo: whether the steps read a neighbouring pair at all.
+// The value type V is int32_t, or I2 to carry two signals through the same
+// steps (a vertical step lifts the horizontal low and high bands at once).
+// Integer arithmetic only; >> is an arithmetic shift (floor), as in jnp.
 //
 // Float filters (lifting_float_kernels.cu, K8/K9): CDF 9/7 and db2 in the
 // arithmetic of wicca_tpu/ops/dwt97_pallas.py, see below.
@@ -31,17 +28,6 @@ namespace wicca {
 
 WICCA_HD int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 WICCA_HD int64_t clamp64(int64_t v, int64_t lo, int64_t hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-// The strip of a launch (every lifting kernel): 2 x 4 where the level's tile (in pairs) has an even
-// height and a width that is a multiple of 4, as at every level of a
-// (512, 1024) tile; else 1 x 1.
-template <template <int, int> class Launch, typename... Args>
-void with_strip(int64_t th, int64_t tw, Args... args) {
-  if (th % 2 == 0 && tw % 4 == 0)
-    Launch<2, 4>::run(args...);
-  else
-    Launch<1, 1>::run(args...);
-}
 
 struct I2 {
   int32_t a, b;
@@ -55,88 +41,77 @@ WICCA_HD I2 operator>>(I2 x, int s) { return {x.a >> s, x.b >> s}; }
 // LeGall 5/3 (JPEG2000 reversible):
 //   d[n] = o[n] - ((e[n] + e[n+1]) >> 1)
 //   s[n] = e[n] + ((d[n-1] + d[n] + 2) >> 2)
-// with e[m] -> e[m-1] and d[-1] -> d[0] at the tile's ends.
 struct Legall53 {
-  // o[n0-1], e[n0-1] (unread when n0 == 0), the strip's 2N samples, e[n0+N]
-  template <int N>
-  static WICCA_HD void fwd_taps(int64_t n0, int64_t m, int64_t* t) {
-    t[0] = n0 > 0 ? 2 * n0 - 2 : 0;
-    t[1] = n0 > 0 ? 2 * n0 - 1 : 1;
-#pragma unroll
-    for (int u = 0; u < 2 * N; ++u) t[2 + u] = 2 * n0 + u;
-    t[2 * N + 2] = n0 + N < m ? 2 * (n0 + N) : 2 * m - 2;
-  }
-
-  template <int N, typename V>
-  static WICCA_HD void fwd(const V* w, bool first, V* s, V* d) {
-#pragma unroll
-    for (int q = 0; q < N; ++q) d[q] = w[3 + 2 * q] - ((w[2 + 2 * q] + w[4 + 2 * q]) >> 1);
-    V prev = first ? d[0] : w[1] - ((w[0] + w[2]) >> 1);
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      s[q] = w[2 + 2 * q] + ((prev + d[q] + 2) >> 2);
-      prev = d[q];
-    }
-  }
-
-  // coefficients n0-1 .. n0+N, clamped to [0, m)
-  template <int N>
-  static WICCA_HD void inv_taps(int64_t n0, int64_t m, int64_t* t) {
-    t[0] = n0 > 0 ? n0 - 1 : 0;
-#pragma unroll
-    for (int u = 0; u < N; ++u) t[1 + u] = n0 + u;
-    t[N + 1] = n0 + N < m ? n0 + N : m - 1;
-  }
-
-  template <int N, typename V>
-  static WICCA_HD void inv(const V* s, const V* d, bool last, V* x) {
-    V e[N + 1];
-#pragma unroll
-    for (int u = 0; u < N; ++u) e[u] = s[1 + u] - ((d[u] + d[1 + u] + 2) >> 2);
-    e[N] = last ? e[N - 1] : s[N + 1] - ((d[N] + d[N + 1] + 2) >> 2);
-#pragma unroll
-    for (int u = 0; u < N; ++u) {
-      x[2 * u] = e[u];
-      x[2 * u + 1] = d[1 + u] + ((e[u] + e[u + 1]) >> 1);
-    }
-  }
+  static constexpr bool kHalo = true;
+  template <typename V>
+  static WICCA_HD V predict(V e, V o, V e1) { return o - ((e + e1) >> 1); }
+  template <typename V>
+  static WICCA_HD V update(V e, V dp, V d) { return e + ((dp + d + 2) >> 2); }
+  template <typename V>
+  static WICCA_HD V unupdate(V s, V dp, V d) { return s - ((dp + d + 2) >> 2); }
+  template <typename V>
+  static WICCA_HD V unpredict(V e, V d, V e1) { return d + ((e + e1) >> 1); }
 };
 
-// Integer Haar (S-transform): d = o - e ; s = e + (d >> 1). Pair-local: only
-// the strip's own samples and coefficients are read.
+// Integer Haar (S-transform): d = o - e ; s = e + (d >> 1). Pair-local.
 struct HaarInt {
-  template <int N>
-  static WICCA_HD void fwd_taps(int64_t n0, int64_t, int64_t* t) {
-    t[0] = t[1] = t[2 * N + 2] = 2 * n0;
-#pragma unroll
-    for (int u = 0; u < 2 * N; ++u) t[2 + u] = 2 * n0 + u;
-  }
-
-  template <int N, typename V>
-  static WICCA_HD void fwd(const V* w, bool, V* s, V* d) {
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      d[q] = w[3 + 2 * q] - w[2 + 2 * q];
-      s[q] = w[2 + 2 * q] + (d[q] >> 1);
-    }
-  }
-
-  template <int N>
-  static WICCA_HD void inv_taps(int64_t n0, int64_t, int64_t* t) {
-    t[0] = t[N + 1] = n0;
-#pragma unroll
-    for (int u = 0; u < N; ++u) t[1 + u] = n0 + u;
-  }
-
-  template <int N, typename V>
-  static WICCA_HD void inv(const V* s, const V* d, bool, V* x) {
-#pragma unroll
-    for (int u = 0; u < N; ++u) {
-      x[2 * u] = s[1 + u] - (d[1 + u] >> 1);
-      x[2 * u + 1] = d[1 + u] + x[2 * u];
-    }
-  }
+  static constexpr bool kHalo = false;
+  template <typename V>
+  static WICCA_HD V predict(V e, V o, V) { return o - e; }
+  template <typename V>
+  static WICCA_HD V update(V e, V, V d) { return e + (d >> 1); }
+  template <typename V>
+  static WICCA_HD V unupdate(V s, V, V d) { return s - (d >> 1); }
+  template <typename V>
+  static WICCA_HD V unpredict(V e, V d, V) { return d + e; }
 };
+
+// One lifting level along a line, for a run of N pairs n0 .. n0+N-1:
+//
+//   lift_run<F, N>(x, first, s, d)        x: samples 2n0-2 .. 2n0+2N (2N+3),
+//                                         the three outside the run at
+//                                         tile-clamped positions; first:
+//                                         n0 == 0 (d[-1] -> d[0])
+//   unlift_run<F, N>(s, d, last, x)       s, d: coefficients n0-1 .. n0+N
+//                                         (N+2) at tile-clamped positions;
+//                                         last: n0 + N == m (e[m] -> e[m-1]);
+//                                         x: samples 2n0 .. 2n0+2N-1
+template <class F, int N, typename V>
+WICCA_HD void lift_run(const V* x, bool first, V* s, V* d) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) d[q] = F::predict(x[2 + 2 * q], x[3 + 2 * q], x[4 + 2 * q]);
+  V dp = first ? d[0] : F::predict(x[0], x[1], x[2]);
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    s[q] = F::update(x[2 + 2 * q], dp, d[q]);
+    dp = d[q];
+  }
+}
+
+template <class F, int N, typename V>
+WICCA_HD void unlift_run(const V* s, const V* d, bool last, V* x) {
+  V e[N + 1];
+#pragma unroll
+  for (int u = 0; u < N; ++u) e[u] = F::unupdate(s[1 + u], d[u], d[1 + u]);
+  e[N] = last ? e[N - 1] : F::unupdate(s[N + 1], d[N], d[N + 1]);
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    x[2 * u] = e[u];
+    x[2 * u + 1] = F::unpredict(e[u], d[1 + u], e[u + 1]);
+  }
+}
+
+// The reversible color transform (core/color.py's rct_fwd / rct_inv):
+// plane q (Y, U, V) from r, g, b, and r, g, b from y, u, v.
+WICCA_HD int32_t rct_fwd_plane(int q, int32_t r, int32_t g, int32_t b) {
+  return q == 0 ? (r + 2 * g + b) >> 2 : (q == 1 ? b - g : r - g);
+}
+
+WICCA_HD void rct_inv_px(int32_t y, int32_t u, int32_t v, int32_t& r, int32_t& g, int32_t& b) {
+  g = y - ((u + v) >> 2);
+  r = v + g;
+  b = u + g;
+}
 
 // ---------------------------------------------------------------------------
 // Float filters (K8/K9 lift each line of their shared-memory window in runs

@@ -75,9 +75,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.wicca_dwt_level.argtypes = [vp, i64, i64, i64, i64, i64, vp, vp, vp, vp, c_int, c_float, c_float, vp]
     lib.wicca_idwt_level.argtypes = [vp, vp, vp, vp, i64, i64, i64, i64, i64, c_int, c_float, vp, vp]
-    lib.wicca_lift_fwd_level.argtypes = [vp, c_int, c_int, i64, i64, i64, i64, i64, i64, i64, vp, vp, vp, vp, vp]
+    lib.wicca_lift_fwd_level.argtypes = [
+        vp, c_int, c_int, i64, i64, i64, i64, i64, i64, i64, vp, vp, vp, vp, c_int, c_int, vp,
+    ]
     lib.wicca_lift_inv_level.argtypes = [
-        vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, vp, c_int, vp,
+        vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, vp, c_int, c_int, c_int, vp,
     ]
     lib.wicca_lift97_fwd_level.argtypes = [
         vp, c_int, c_int, i64, i64, i64, i64, i64, i64, i64, vp, vp, vp, vp, c_float, c_float, c_float,

@@ -15,6 +15,14 @@ that tile's edges. Encode and decode use the same grid, so the roundtrip is
 exact. ``filt`` is ``'legall5.3'`` (the JPEG2000 reversible 5/3) or
 ``'haar_int'`` (the S-transform; pair-local, so the tiles are invisible).
 
+With ``color='rct'`` the input of K6 is planar RGB or RGBA, and its first
+launch applies the reversible color transform
+(:func:`~wicca_tpu_torch.core.color.rct_fwd_codec`) before lifting; the
+last launch of K7 applies its inverse
+(:func:`~wicca_tpu_torch.core.color.rct_inv_codec`) and then, with
+``emit_u8``, the clip to uint8. The plain twins are exactly that
+composition.
+
 A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (``csrc/lifting_kernels.cu``, one launch per
 level) or raises; nothing falls back. Each launch adds one to
@@ -25,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from wicca_tpu_torch.core.color import rct_fwd_codec, rct_inv_codec
 from wicca_tpu_torch.core.lifting import dwt2_level_lifting, idwt2_level_lifting
 from wicca_tpu_torch.ops import _build
 from wicca_tpu_torch.ops.dwt_cuda import (
@@ -43,6 +52,7 @@ from wicca_tpu_torch.ops.dwt_cuda import (
 LAUNCHES = {"dwt53_multilevel": 0, "idwt53_multilevel": 0}
 
 _FILTERS = {"legall5.3": 0, "haar_int": 1}  # the kernels' filter ids
+_COLORS = {"none": 0, "rct": 1}
 
 
 def reset_launches() -> None:
@@ -71,9 +81,24 @@ def _tilewise(fn, x: torch.Tensor, th: int, tw: int, *more: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _check_fwd(x: torch.Tensor, k: int, filt: str) -> None:
+def _check_color(t: torch.Tensor, color: str) -> None:
+    if color not in _COLORS:
+        raise ValueError(f"color must be one of {sorted(_COLORS)}, got {color!r}")
+    if color == "rct" and (t.ndim < 3 or t.shape[-3] not in (3, 4)):
+        raise ValueError(f"color='rct' needs planar (..., 3|4, H, W) planes, got {tuple(t.shape)}")
+
+
+def _check_plane(name: str, *shapes) -> None:
+    """The kernels index inside a plane with 32-bit offsets."""
+    for shape in shapes:
+        if shape[-2] * shape[-1] >= 1 << 31:
+            raise ValueError(f"{name}: a plane of {tuple(shape[-2:])} has 2**31 samples or more")
+
+
+def _check_fwd(x: torch.Tensor, k: int, filt: str, color: str = "none") -> None:
     if filt not in _FILTERS:
         raise ValueError(f"filt must be one of {sorted(_FILTERS)}")
+    _check_color(x, color)
     if not 1 <= k <= 3:
         raise ValueError("1..3 levels per pass")
     if x.ndim < 2 or x.numel() == 0:
@@ -93,13 +118,17 @@ def _unflatten(lead: tuple, ll: torch.Tensor, details):
             [tuple(b.reshape(lead + b.shape[-2:]) for b in bands) for bands in details])
 
 
-def dwt53_multilevel_plain(x: torch.Tensor, k: int, filt: str = "legall5.3"):
+def dwt53_multilevel_plain(x: torch.Tensor, k: int, filt: str = "legall5.3", color: str = "none"):
     """``k`` <= 3 tile-local reversible levels of planar ``(..., H, W)``
     uint8 or int32 input, H and W divisible by ``2**k``, each level
     horizontal then vertical (:func:`~wicca_tpu_torch.core.lifting.dwt2_level_lifting`
     on every tile). Returns ``(ll_i32, [(lh, hl, hh) int16, ...])`` fine to
-    coarse, over the input edge-padded to tile multiples."""
-    _check_fwd(x, k, filt)
+    coarse, over the input edge-padded to tile multiples. ``color='rct'``:
+    the codec's forward RCT first (RGB or RGBA planes on the third axis from
+    last)."""
+    _check_fwd(x, k, filt, color)
+    if color == "rct":
+        x = rct_fwd_codec(x)
     lead = tuple(x.shape[:-2])
     cur, th, tw = _tiling(x.reshape(-1, x.shape[-2], x.shape[-1]).to(torch.int32))
     details = []
@@ -110,12 +139,15 @@ def dwt53_multilevel_plain(x: torch.Tensor, k: int, filt: str = "legall5.3"):
     return _unflatten(lead, cur, details)
 
 
-def _launch_fwd(lib, x: torch.Tensor, k: int, filt: str, stream: int):
+def _launch_fwd(lib, x: torch.Tensor, k: int, filt: str, stream: int, color: str = "none"):
     """K6's launches through ``lib`` on ``stream`` (``x`` uint8 or int32,
-    checked): one per level, the LL of each level the next one's input."""
+    checked): one per level, the LL of each level the next one's input; the
+    first applies ``color``."""
     c, h, w = _planes(x.shape), x.shape[-2], x.shape[-1]
+    cin = x.shape[-3] if color == "rct" else 1
     hp, th = _tiled_extent(h, _TILE_H)
     wp, tw = _tiled_extent(w, _TILE_W)
+    _check_plane("dwt53_multilevel", (hp, wp), x.shape)
     cur, details = x, []
     for lvl in range(1, k + 1):
         hb, wb = hp >> lvl, wp >> lvl
@@ -123,7 +155,8 @@ def _launch_fwd(lib, x: torch.Tensor, k: int, filt: str, stream: int):
         bands = tuple(torch.empty((c, hb, wb), dtype=torch.int16, device=x.device) for _ in range(3))
         rc = lib.wicca_lift_fwd_level(cur.data_ptr(), int(cur.dtype == torch.uint8), _FILTERS[filt], c,
                                       cur.shape[-2], cur.shape[-1], hb, wb, th >> lvl, tw >> lvl, ll.data_ptr(),
-                                      *(b.data_ptr() for b in bands), stream)
+                                      *(b.data_ptr() for b in bands), _COLORS[color] if lvl == 1 else 0, cin,
+                                      stream)
         _build.check(rc, "dwt53_multilevel")
         LAUNCHES["dwt53_multilevel"] += 1
         details.append(bands)
@@ -131,16 +164,17 @@ def _launch_fwd(lib, x: torch.Tensor, k: int, filt: str, stream: int):
     return _unflatten(tuple(x.shape[:-2]), cur, details)
 
 
-def dwt53_multilevel(x: torch.Tensor, k: int, filt: str = "legall5.3"):
+def dwt53_multilevel(x: torch.Tensor, k: int, filt: str = "legall5.3", color: str = "none"):
     """K6: :func:`dwt53_multilevel_plain` as one launch per level; the tile
-    padding of the input is an index clamp in the kernel."""
-    _check_fwd(x, k, filt)
+    padding of the input is an index clamp in the kernel, and the RCT
+    (``color='rct'``) the first launch's prologue."""
+    _check_fwd(x, k, filt, color)
     if x.device.type == "cpu":
-        return dwt53_multilevel_plain(x, k, filt)
+        return dwt53_multilevel_plain(x, k, filt, color)
     x = contiguous_aligned(_as_input(x))
     _require_cuda("dwt53_multilevel", x)
     with torch.cuda.device(x.device):
-        return _launch_fwd(_build.library(), x, k, filt, _stream(x))
+        return _launch_fwd(_build.library(), x, k, filt, _stream(x), color)
 
 
 # ---------------------------------------------------------------------------
@@ -148,9 +182,10 @@ def dwt53_multilevel(x: torch.Tensor, k: int, filt: str = "legall5.3"):
 # ---------------------------------------------------------------------------
 
 
-def _check_inv(ll: torch.Tensor, details, k: int, orig_k: int, filt: str) -> None:
+def _check_inv(ll: torch.Tensor, details, k: int, orig_k: int, filt: str, color: str = "none") -> None:
     if filt not in _FILTERS:
         raise ValueError(f"filt must be one of {sorted(_FILTERS)}")
+    _check_color(ll, color)
     if not 1 <= k <= 3 or len(details) != k:
         raise ValueError("1..3 levels per pass; details must match k")
     if orig_k < k:
@@ -172,15 +207,16 @@ def _coarse_grid(ch: int, cw: int, orig_k: int) -> tuple[int, int, int, int]:
 
 
 def idwt53_multilevel_plain(ll: torch.Tensor, details, k: int, emit_u8: bool = False, orig_k: int | None = None,
-                            filt: str = "legall5.3") -> torch.Tensor:
+                            filt: str = "legall5.3", color: str = "none") -> torch.Tensor:
     """Exact inverse of :func:`dwt53_multilevel_plain` on the same tile
     grid. ``details`` is ``[(lh, hl, hh), ...]`` fine to coarse,
     ``len(details) == k``. The LL is edge-padded to the coarse grid and each
     band edge-padded or cropped to its level's grid. For a partial pass of a
     progressive decode, ``orig_k`` is the depth of the encoder's pass, whose
-    tiles set the clamps. int32 out, or uint8 (clip, cast) with ``emit_u8``."""
+    tiles set the clamps. ``color='rct'``: the codec's inverse RCT last.
+    int32 out, or uint8 (clip, cast) with ``emit_u8``."""
     orig_k = k if orig_k is None else orig_k
-    _check_inv(ll, details, k, orig_k, filt)
+    _check_inv(ll, details, k, orig_k, filt, color)
     lead, (ch, cw) = tuple(ll.shape[:-2]), ll.shape[-2:]
     chp, cwp, th_c, tw_c = _coarse_grid(ch, cw, orig_k)
     x = _pad_dim_to(_pad_dim_to(ll.reshape(-1, ch, cw).to(torch.int32), -2, chp), -1, cwp)
@@ -189,17 +225,23 @@ def idwt53_multilevel_plain(ll: torch.Tensor, details, k: int, emit_u8: bool = F
         bands = [_pad_dim_to(_pad_dim_to(b.reshape(x.shape[0], *b.shape[-2:]).to(torch.int32), -2, chp * m),
                              -1, cwp * m)[:, : chp * m, : cwp * m] for b in details[lvl - 1]]
         x = _tilewise(lambda *t: idwt2_level_lifting(*t, filt), x, th_c * m, tw_c * m, *bands)
+    x = x.reshape(lead + x.shape[-2:])
+    if color == "rct":  # then the codec's _emit_native
+        x = rct_inv_codec(x)
     if emit_u8:
         x = torch.clamp(x, 0, 255).to(torch.uint8)
-    return x.reshape(lead + x.shape[-2:])
+    return x
 
 
 def _launch_inv(lib, ll: torch.Tensor, details, k: int, emit_u8: bool, orig_k: int, filt: str,
-                stream: int) -> torch.Tensor:
+                stream: int, color: str = "none") -> torch.Tensor:
     """K7's launches through ``lib`` on ``stream`` (``ll`` int32, bands
-    int16, checked): one per level, coarse to fine."""
+    int16, checked): one per level, coarse to fine; the last applies
+    ``color`` and ``emit_u8``."""
     c, ch, cw = _planes(ll.shape), ll.shape[-2], ll.shape[-1]
+    cin = ll.shape[-3] if color == "rct" else 1
     chp, cwp, th_c, tw_c = _coarse_grid(ch, cw, orig_k)
+    _check_plane("idwt53_multilevel", (chp << k, cwp << k), ll.shape, *(bands[0].shape for bands in details))
     cur = ll
     for lvl in range(k, 0, -1):
         m = 1 << (k - lvl)
@@ -210,7 +252,7 @@ def _launch_inv(lib, ll: torch.Tensor, details, k: int, emit_u8: bool, orig_k: i
         rc = lib.wicca_lift_inv_level(cur.data_ptr(), cur.shape[-2], cur.shape[-1], lh.data_ptr(), hl.data_ptr(),
                                       hh.data_ptr(), lh.shape[-2], lh.shape[-1],
                                       _FILTERS[filt], c, hb, wb, th_c * m, tw_c * m, out.data_ptr(), int(u8),
-                                      stream)
+                                      _COLORS[color] if lvl == 1 else 0, cin, stream)
         _build.check(rc, "idwt53_multilevel")
         LAUNCHES["idwt53_multilevel"] += 1
         cur = out
@@ -218,16 +260,17 @@ def _launch_inv(lib, ll: torch.Tensor, details, k: int, emit_u8: bool, orig_k: i
 
 
 def idwt53_multilevel(ll: torch.Tensor, details, k: int, emit_u8: bool = False, orig_k: int | None = None,
-                      filt: str = "legall5.3") -> torch.Tensor:
+                      filt: str = "legall5.3", color: str = "none") -> torch.Tensor:
     """K7: :func:`idwt53_multilevel_plain` as one launch per level; the
     padding and cropping of the LL and the bands are index clamps in the
-    kernel."""
+    kernel, and the inverse RCT (``color='rct'``) and the uint8 emit the
+    last launch's epilogue."""
     orig_k = k if orig_k is None else orig_k
-    _check_inv(ll, details, k, orig_k, filt)
+    _check_inv(ll, details, k, orig_k, filt, color)
     if ll.device.type == "cpu":
-        return idwt53_multilevel_plain(ll, details, k, emit_u8, orig_k, filt)
+        return idwt53_multilevel_plain(ll, details, k, emit_u8, orig_k, filt, color)
     ll = contiguous_aligned(ll.to(torch.int32))
     details = [tuple(contiguous_aligned(b) for b in bands) for bands in details]
     _require_cuda("idwt53_multilevel", ll, *(b for bands in details for b in bands))
     with torch.cuda.device(ll.device):
-        return _launch_inv(_build.library(), ll, details, k, emit_u8, orig_k, filt, _stream(ll))
+        return _launch_inv(_build.library(), ll, details, k, emit_u8, orig_k, filt, _stream(ll), color)
