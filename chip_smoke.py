@@ -5,9 +5,10 @@
 
 Phases, each fatal on failure:
 
-1. the card (``nvidia-smi``), torch and CUDA versions, and the nvcc build
-   of the kernels from ``wicca_tpu_torch/csrc`` (one nvcc per source, run
-   together);
+1. the card (``nvidia-smi``), torch and CUDA versions, the nvcc build of
+   the kernels from ``wicca_tpu_torch/csrc`` (one nvcc per source, run
+   together) and the g++ build of the container's entropy coders from
+   ``wicca_tpu_torch/native``;
 2. every kernel against its plain PyTorch twin on the same CUDA tensors
    (``torch.equal``: tolerance 0) over small shapes: for K1-K3 odd sizes,
    batched input, icon depths 1-8, k = 1-3 fused levels, uint8 and float32
@@ -51,6 +52,24 @@ Phases, each fatal on failure:
       decode. ``ict`` runs through the fold: K8's first launch reads the
       uint8 frame and applies the ICT, K9's last launch applies the inverse
       ICT and emits uint8;
+   then, after phase 3's counters are read (their launches count nowhere):
+   e. the ``.wct`` container: Haar ``QuantSpec(1.0)``, ``legall5.3`` +
+      ``rct`` and ``bior4.4`` + ``ict`` (``chroma_gain=2``) encoded on the
+      card, ``serialize`` (``codec='auto'``, checksums) and ``deserialize``
+      onto the card equal the stream plane by plane and decode as it does
+      bit for bit; a 2-layer prefix of a 3-layer file holds the prefix
+      codes; ``ll_codec='rice'`` on the lossless stream roundtrips;
+      ``inspect(verify=True)`` finds no corrupt unit; host times and source
+      MB/s of serialize and deserialize;
+   f. ROI: ``apply_roi`` (a rectangle across tile seams, ``bg_shift=2``) on
+      the Haar and ``legall5.3`` + ``rct`` streams, a WCT6 file saved and
+      loaded decodes as the stream in memory, the region as without ROI,
+      the same icon, ``decode_at_level(st, 2)``; the time of ``apply_roi``;
+   g. a seeded 1x46341x46341 uint8 plane (past 2**31 samples) through the
+      lossless codec bit for bit, and the codes of a crop past sample 2**31
+      equal to the plain twin's (K6/K7's 64-bit row offsets);
+   h. rate control on a 3x2048x2048 crop: ``encode_to_bpp(crop, 1.0)`` and
+      PCRD ``truncate`` to 1.0 bpp within budget, both decoding;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -69,7 +88,9 @@ device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -672,6 +693,222 @@ def phase_float(x):
 
 
 # ---------------------------------------------------------------------------
+# phases 3e-3h: the container, ROI, the 2**31 plane and rate control (after
+# phase 3's counters are read: their launches are in no count)
+# ---------------------------------------------------------------------------
+
+
+def sync(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def check_streams(what: str, got, want) -> None:
+    """Two streams equal field by field and plane by plane (tolerance 0)."""
+    fields = ("spec", "levels", "orig_shape", "wavelet", "color", "chroma_gain", "layout", "bit_depth", "roi_shift",
+              "bg_shift", "metadata", "band_div")
+    for name in fields:
+        if getattr(got, name) != getattr(want, name):
+            raise AssertionError(f"{what}: {name} {getattr(got, name)!r} != {getattr(want, name)!r}")
+    check_equal(f"{what}: ll", got.ll, want.ll)
+    for i, (a, b) in enumerate(zip(flat(got.details), flat(want.details), strict=True)):
+        check_equal(f"{what}: plane {i}", a, b)
+
+
+def prefix_codes(c: torch.Tensor, missing: int, lossless: bool) -> torch.Tensor:
+    """The codes a layer prefix missing ``missing`` layers holds: the
+    sign-magnitude shift, and for a lossless stream its midpoint widening
+    to int32 (the container's rule)."""
+    c32 = c.to(torch.int32)
+    m = c32.abs() >> missing
+    if not lossless:
+        return (torch.sign(c32) * m).to(c.dtype)
+    return torch.where(m > 0, torch.sign(c32) * ((m << missing) + (1 << (missing - 1))), 0)
+
+
+CONTAINER = (("haar", "none", 1.0), ("legall5.3", "rct", 1.0), ("bior4.4", "ict", 2.0))
+
+
+def phase_container(x):
+    """Phase 3e: each CONTAINER configuration encoded on the card,
+    ``serialize`` (codec 'auto', checksums) and ``deserialize`` onto the
+    card: the stream field by field and plane by plane, and its decode bit
+    for bit; a 2-layer prefix of a 3-layer file holds the prefix codes and
+    decodes as they do; the lossless stream with ``ll_codec='rice'``
+    roundtrips; ``inspect(verify=True)`` finds no corrupt unit. Returns the
+    host times per configuration."""
+    from wicca_tpu_torch import QuantSpec, decode, encode
+    from wicca_tpu_torch.codec import container
+
+    spec = QuantSpec(base_step=1.0)
+    rows = []
+    for wavelet, color, gain in CONTAINER:
+        what = f"container {wavelet} color={color}"
+        lossless = wavelet == "legall5.3"
+        st = encode(x, levels=LEVELS, spec=spec, wavelet=wavelet, color=color, chroma_gain=gain)
+        direct = decode(st, emit_u8=True)
+        sync(x)
+        t0 = time.perf_counter()
+        blob = container.serialize(st)
+        ser_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = container.deserialize(blob, device=x.device)
+        de_s = time.perf_counter() - t0
+        check_streams(what, back, st)
+        check_equal(f"{what}: decode of the loaded stream", decode(back, emit_u8=True), direct)
+        blobs = {"flat": blob}
+        t0 = time.perf_counter()
+        blobs["layers3"] = container.serialize(st, quality_layers=3)
+        ser3_s = time.perf_counter() - t0
+        prefix = container.deserialize(blobs["layers3"], max_layers=2, device=x.device)
+        want = dataclasses.replace(
+            st, details=tuple(tuple(prefix_codes(b, 1, lossless) for b in bands) for bands in st.details),
+            spec=spec if lossless else dataclasses.replace(spec, base_step=2 * spec.base_step))
+        check_streams(f"{what}: 2-layer prefix", prefix, want)
+        check_equal(f"{what}: decode of the 2-layer prefix", decode(prefix, emit_u8=True), decode(want, emit_u8=True))
+        if lossless:
+            blobs["ll_rice"] = container.serialize(st, ll_codec="rice")
+            check_streams(f"{what}: ll_codec='rice'", container.deserialize(blobs["ll_rice"], device=x.device), st)
+        for name, b in blobs.items():
+            rep = container.inspect(b, verify=True)
+            if rep["integrity"] != "ok" or rep["corrupt_sections"]:
+                raise AssertionError(f"{what}: inspect({name}) {rep['integrity']} {rep['corrupt_sections']}")
+        codecs = [p["codec"] for p in container.inspect(blob)["planes"]]
+        rows.append(dict(config=f"{wavelet}/{color}", bytes=len(blob), bpp=8 * len(blob) / (x.shape[-2] * x.shape[-1]),
+                         serialize_s=ser_s, deserialize_s=de_s, serialize_layers3_s=ser3_s,
+                         source_MB=x.numel() / 1e6, serialize_MBps=x.numel() / 1e6 / ser_s,
+                         deserialize_MBps=x.numel() / 1e6 / de_s, rc_planes=codecs.count("rc")))
+    return rows
+
+
+def phase_roi(x):
+    """Phase 3f: ``apply_roi`` with a rectangle that crosses tile seams both
+    ways, ``bg_shift=2``, on the Haar and ``legall5.3`` + ``rct`` streams;
+    ``save`` (a WCT6 file) -> ``load`` -> ``decode`` equal to decoding the
+    ROI stream in memory; the region itself decodes as the stream without
+    ROI (for the lossless stream: as the frame); ``icon_from_stream`` as the
+    plain stream's; ``decode_at_level(st, 2)`` runs. Returns the times of
+    ``apply_roi``."""
+    import tempfile
+
+    from wicca_tpu_torch import decode, decode_at_level, encode, icon_from_stream
+    from wicca_tpu_torch.codec import apply_roi, container
+
+    h, w = x.shape[-2], x.shape[-1]
+    r0, r1, c0, c1 = h // 8 + 100, h // 2 + 300, w // 6 + 50, w // 2 + 700  # crosses row and column seams
+    mask = np.zeros((h, w), bool)
+    mask[r0:r1, c0:c1] = True
+    rows = []
+    for wavelet, color in (("haar", "none"), ("legall5.3", "rct")):
+        what = f"roi {wavelet} color={color}"
+        st = encode(x, levels=LEVELS, wavelet=wavelet, color=color)
+        sync(x)
+        t0 = time.perf_counter()
+        roi = apply_roi(st, mask, bg_shift=2)
+        sync(x)
+        roi_s = time.perf_counter() - t0
+        want = decode(roi, emit_u8=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/roi.wct"
+            nbytes = container.save(roi, path)
+            with open(path, "rb") as f:
+                if f.read(4) != b"WCT6":
+                    raise AssertionError(f"{what}: not a WCT6 file")
+            loaded = container.load(path, device=x.device)
+        check_streams(f"{what}: loaded", loaded, roi)
+        check_equal(f"{what}: decode of the loaded file", decode(loaded, emit_u8=True), want)
+        region = x[..., r0:r1, c0:c1] if wavelet == "legall5.3" else decode(st, emit_u8=True)[..., r0:r1, c0:c1]
+        check_equal(f"{what}: the region", want[..., r0:r1, c0:c1], region)
+        check_equal(f"{what}: icon_from_stream", icon_from_stream(roi), icon_from_stream(st))
+        part = decode_at_level(roi, 2)
+        if tuple(part.shape) != (x.shape[0], -(-h // 4), -(-w // 4)) or part.dtype != decode_at_level(st, 2).dtype:
+            raise AssertionError(f"{what}: decode_at_level(2) gave {part.dtype}{tuple(part.shape)}")
+        rows.append(dict(config=f"{wavelet}/{color}", apply_roi_s=roi_s, roi_shift=roi.roi_shift, bytes=nbytes,
+                         plain_bytes=len(container.serialize(st))))
+    return rows
+
+
+BIG = 46341  # 46341**2 = 2,147,488,281 samples: past 2**31
+
+
+def phase_big_plane(seed: int, dev):
+    """Phase 3g: a seeded 1 x 46341 x 46341 uint8 plane (2.15 GB) through
+    ``encode(levels=5, wavelet='legall5.3')`` and ``decode(emit_u8=True)``
+    on the card, equal to the input bit for bit; the level 1-3 codes of a
+    tile-aligned crop whose last samples lie past 2**31 equal the plain
+    twin's codes of the same crop. Memory: the frame and its 32-multiple
+    padding 2.15 GB each, pass 1's level-1 LL (int32) and bands (int16) over
+    the tile grid (46592 x 47104) 2.19 + 3.29 GB, decode's int32 level-2
+    output 2.19 GB and uint8 output 2.19 GB: about 15 GB at the peak, which
+    the phase reports and frees."""
+    from wicca_tpu_torch import decode, encode
+    from wicca_tpu_torch.core.pad import pad_to_multiple
+    from wicca_tpu_torch.ops import dwt53_cuda as lops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = BIG
+    x = torch.randint(0, 256, (1, n, n), generator=gen, device=dev, dtype=torch.uint8)
+    t0 = time.perf_counter()
+    st = encode(x, levels=LEVELS, wavelet="legall5.3")
+    rec = decode(st, emit_u8=True)
+    sync(x)
+    roundtrip_s = time.perf_counter() - t0
+    check_equal("2**31 plane: roundtrip vs the input", rec, x)
+    del rec
+    # tile-aligned (45056, 45056): the crop's last rows lie past sample 2**31
+    r0, c0 = (n // 512 - 2) * 512, (n // 1024 - 1) * 1024
+    crop = pad_to_multiple(x, 1 << LEVELS)[..., r0:, c0:].contiguous()
+    if not r0 * n < 1 << 31 < n * n:
+        raise AssertionError("the crop does not straddle sample 2**31")
+    _, pdets = lops.dwt53_multilevel_plain(crop, 3)
+    for lvl, bands in enumerate(pdets, start=1):
+        for i, b in enumerate(bands):
+            got = st.details[lvl - 1][i][..., r0 >> lvl : (r0 >> lvl) + b.shape[-2], c0 >> lvl : (c0 >> lvl) + b.shape[-1]]
+            check_equal(f"2**31 plane: level {lvl} band {i} of the crop", got, b)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del x, st, crop, pdets
+    torch.cuda.empty_cache()
+    return dict(samples=n * n, roundtrip_s=roundtrip_s, peak_GB=peak / 1e9)
+
+
+def phase_rate_control(x):
+    """Phase 3h, on a 3 x 2048 x 2048 crop of the frame (a cut: the step
+    search encodes the image once per probe, and PCRD codes every plane once
+    per divisor on the host): ``encode_to_bpp(crop, 1.0)`` reaches at most
+    1.0 bpp and decodes; ``truncate`` of a step-1.0 stream to 1.0 bpp gives a
+    container within that budget that decodes."""
+    from wicca_tpu_torch import QuantSpec, decode, encode, psnr
+    from wicca_tpu_torch.codec import container, encode_to_bpp, rd_truncate
+
+    crop = x[..., :2048, :2048].contiguous()
+    n_px = crop.shape[-2] * crop.shape[-1]
+    t0 = time.perf_counter()
+    st, info = encode_to_bpp(crop, 1.0)
+    search_s = time.perf_counter() - t0
+    if not (info["met"] and info["bpp"] <= 1.0):
+        raise AssertionError(f"encode_to_bpp missed 1.0 bpp: {info}")
+    db_search = float(psnr(decode(st, emit_u8=True), crop))
+    fine = encode(crop, levels=LEVELS, spec=QuantSpec(base_step=1.0))
+    budget = n_px // 8  # 1.0 bpp
+    t0 = time.perf_counter()
+    small = rd_truncate(fine, target_bytes=budget)
+    truncate_s = time.perf_counter() - t0
+    blob = container.serialize(small)
+    if len(blob) > budget:
+        raise AssertionError(f"truncate: {len(blob)} bytes > the budget of {budget}")
+    back = container.deserialize(blob, device=x.device)
+    rec = decode(back, emit_u8=True)
+    if rec.shape != crop.shape or rec.dtype != torch.uint8:
+        raise AssertionError(f"truncate: decode gave {rec.dtype}{tuple(rec.shape)}")
+    return dict(search=info, search_s=search_s, search_psnr_db=db_search, truncate_s=truncate_s,
+                truncate_bytes=len(blob), budget_bytes=budget, band_div=list(small.band_div),
+                truncate_psnr_db=float(psnr(rec, crop)))
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -947,6 +1184,15 @@ def phase_times(x, launches, max_abs_err, reps, rate):
     return rows, kernels, e2e
 
 
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` names it (vendor, model, BIOS model) and
+    the cores this process may use."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    names = [fields[k].strip() for k in ("Vendor ID", "Model name", "BIOS Model name") if k in fields]
+    return f"{' / '.join(names) or 'not reported'}, {len(os.sched_getaffinity(0))} cores usable"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -970,6 +1216,11 @@ def main(argv=None) -> int:
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", _build.build_log))
     if regs:
         print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, {spills} bytes spill stores")
+    from wicca_tpu_torch.native import rice
+
+    t0 = time.perf_counter()
+    rice.library()  # the container's entropy coders (g++), so that phase 3e times coding alone
+    print(f"entropy library build: {time.perf_counter() - t0:.1f} s", flush=True)
     name = torch.cuda.get_device_name(0)
     rate = hbm_bytes_per_s(name)
 
@@ -1012,12 +1263,43 @@ def main(argv=None) -> int:
     launches.update(float_launches[(FLOAT[0][0], FLOAT[0][1])])
     max_abs_err.update(err)
 
+    cpu = host_cpu()
+    print(f"host CPU: {cpu}", flush=True)
+    t0 = time.perf_counter()
+    container_rows = phase_container(x)
+    for r in container_rows:
+        print(f"phase 3e: .wct {r['config']}: the loaded stream and its decode equal the encoded ones; 2-layer "
+              f"prefix, inspect ok; {r['bytes']} bytes ({r['bpp']:.4f} bpp, {r['rc_planes']} rc planes); "
+              f"serialize {r['serialize_s']:.3f} s ({r['serialize_MBps']:.1f} source MB/s), deserialize "
+              f"{r['deserialize_s']:.3f} s ({r['deserialize_MBps']:.1f} source MB/s), 3 layers "
+              f"{r['serialize_layers3_s']:.3f} s", flush=True)
+    print(f"phase 3e: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    roi_rows = phase_roi(x)
+    for r in roi_rows:
+        print(f"phase 3f: ROI {r['config']}: WCT6 file, region, icon and decode_at_level(2) hold; apply_roi "
+              f"{r['apply_roi_s']:.3f} s, roi_shift {r['roi_shift']}, {r['bytes']} bytes (without ROI "
+              f"{r['plain_bytes']})", flush=True)
+    print(f"phase 3f: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    big = phase_big_plane(args.seed, x.device)
+    print(f"phase 3g: 1x{BIG}x{BIG} legall5.3 depth {LEVELS} ({big['samples']} samples) roundtrips bit for bit, "
+          f"codes past 2**31 equal the plain twin's; roundtrip {big['roundtrip_s']:.3f} s, peak "
+          f"{big['peak_GB']:.2f} GB ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    rc = phase_rate_control(x)
+    print(f"phase 3h: encode_to_bpp(3x2048x2048, 1.0) {json.dumps(rc['search'])} in {rc['search_s']:.2f} s, "
+          f"PSNR {rc['search_psnr_db']:.4f} dB; truncate to {rc['budget_bytes']} bytes: {rc['truncate_bytes']} "
+          f"in {rc['truncate_s']:.2f} s, PSNR {rc['truncate_psnr_db']:.4f} dB ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
     rows, kernels, e2e = phase_times(x, launches, max_abs_err, args.reps, rate)
     for r in rows:
         print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
-    print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e}))
+    host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc}
+    print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

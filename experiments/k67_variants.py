@@ -3,6 +3,7 @@
 out, and time each kernel pass at the codec's shapes.
 
     python3 experiments/k67_variants.py        # needs a CUDA card and nvcc
+    python3 experiments/k67_variants.py --against OTHER/lifting_kernels.cu
 
 Variants (each a text substitution on a copy of the source; the kernels of
 the other sources are built unchanged):
@@ -18,6 +19,11 @@ the other sources are built unchanged):
                       that never holds keeps the loads and the lifting);
 * ``nolift_nostore``  both: loads only.
 
+With ``--against``, only ``base`` and ``against`` (the given source, for
+example the parent commit's, with the same C interface) are built, and
+their passes are timed in turns: against, base, base, against; both must
+give the library's results.
+
 Passes, on a 3x8704x6144 uint8 frame made from seed 0: K6 levels 1-3 from
 uint8 with the RCT, from uint8, and from int32 (the plain RCT's output);
 K7 levels 3-1 to uint8 with the inverse RCT, to uint8, and to int32.
@@ -31,6 +37,7 @@ power limit first.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import statistics
 import subprocess
@@ -171,7 +178,10 @@ def level_times(lib, x: torch.Tensor, st: int) -> None:
         print(f"  {label:<26} {ms:.4f} ms  {nb / 1e6:.1f} MB  {nb / ms / 1e6:.0f} GB/s", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", type=Path, help="another lifting_kernels.cu to time in turns with this one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k67_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -179,8 +189,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {name: build(Path(tmp), name, text)
-                for name, text in variants((_build.CSRC / SOURCE).read_text()).items()}
+        src = (_build.CSRC / SOURCE).read_text()
+        texts = variants(src) if args.against is None else {"against": args.against.read_text(), "base": src}
+        order = list(texts) if args.against is None else ["against", "base", "base", "against"]
+        jobs = {name: build(Path(tmp), name, text) for name, text in texts.items()}
         libs = {}
         for name, (procs, objs, so) in jobs.items():
             logs = "".join(p.communicate()[0] for p in procs)
@@ -199,7 +211,8 @@ def main() -> int:
         ref = _build.library()
         want_ll, want_dets = d._launch_fwd(ref, x, 3, filt, st, "rct")
         want_rec = d._launch_inv(ref, want_ll, want_dets, 3, True, 3, filt, st, "rct")
-        for name, lib in libs.items():
+        for name in order:
+            lib = libs[name]
             ll, dets = d._launch_fwd(lib, x, 3, filt, st, "rct")
             ull, udets = d._launch_fwd(lib, x, 3, filt, st)
             times = {
@@ -211,15 +224,17 @@ def main() -> int:
                 "K7 i32": event_ms(lambda: d._launch_inv(lib, ull, udets, 3, False, 3, filt, st)),
             }
             note = ""
-            if name == "base":
+            if name in ("base", "against"):
                 rec = d._launch_inv(lib, ll, dets, 3, True, 3, filt, st, "rct")
                 same = torch.equal(ll, want_ll) and torch.equal(rec, want_rec) and torch.equal(rec, x)
                 note = f"  equal to the library and the frame: {same}"
                 if not same:
-                    raise AssertionError("the base variant differs from the library built from the sources")
+                    raise AssertionError(f"the {name} variant differs from the library built from the sources")
             print(f"{name:<16}" + "  ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + note, flush=True)
-        print("levels of base, each launch alone:", flush=True)
-        level_times(libs["base"], x, st)
+        for name in dict.fromkeys(order):
+            if name in ("base", "against"):
+                print(f"levels of {name}, each launch alone:", flush=True)
+                level_times(libs[name], x, st)
     return 0
 
 

@@ -115,13 +115,15 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_streams_raise():
-    """ROI streams (Queue 1 item 7d) still raise; Haar has no 9-16-bit path
-    in either package."""
+    """Haar has no 9-16-bit path in either package, and an unknown color
+    raises. ROI streams raised here until ROI coding was ported; now an
+    ROI-scaled stream of zero codes decodes as the stream itself
+    (test_torch_roi.py holds ROI against wicca_tpu)."""
     with pytest.raises(ValueError, match="lifting wavelet"):
         tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint16), levels=2)
     ts = tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint8), levels=2)
-    for change in (dict(roi_shift=3), dict(roi_shift=2, wavelet="db2"), dict(roi_shift=1, bit_depth=16)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
-            tpipe.decode(dataclasses.replace(ts, **change))
+    want = tpipe.decode(ts, emit_u8=True)
+    for change in (dict(roi_shift=3), dict(roi_shift=2, bg_shift=2), dict(roi_shift=1, bg_shift=6)):
+        assert torch.equal(tpipe.decode(dataclasses.replace(ts, **change), emit_u8=True), want)
     with pytest.raises(ValueError):
         tpipe.encode(torch.zeros((1, 16, 16), dtype=torch.uint8), levels=2, color="yuv")

@@ -13,7 +13,9 @@ import torch
 import wicca_tpu_torch
 from wicca_tpu_torch import HaarCoder, QuantSpec, decode, decode_at_level, encode, ops
 from wicca_tpu_torch._device import resolve_device
+from wicca_tpu_torch.codec import container
 from wicca_tpu_torch.codec.interop import stream_from_arrays
+from wicca_tpu_torch.native import rice
 from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,8 +41,27 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
     assert res["bad"] == []
     for name in ("wicca_tpu_torch.ops.dwt_cuda", "wicca_tpu_torch.ops._build", "wicca_tpu_torch.codec.interop",
                  "wicca_tpu_torch.coder", "wicca_tpu_torch.core.haar", "wicca_tpu_torch.ops.dwt53_cuda",
-                 "wicca_tpu_torch.core.lifting", "wicca_tpu_torch.core.color", "wicca_tpu_torch.ops.dwt97_cuda"):
+                 "wicca_tpu_torch.core.lifting", "wicca_tpu_torch.core.color", "wicca_tpu_torch.ops.dwt97_cuda",
+                 "wicca_tpu_torch.codec.container", "wicca_tpu_torch.codec.roi", "wicca_tpu_torch.codec.rd",
+                 "wicca_tpu_torch.codec.transcode", "wicca_tpu_torch.native.rice"):
         assert name in res["modules"]
+
+
+def test_entropy_library_builds_from_the_port_alone(tmp_path, monkeypatch):
+    """g++ builds the port's own entropy.cpp into a native-<hash> directory
+    under the build root it is given (wicca_tpu_torch/_build by default);
+    no make, nothing of wicca_tpu/native."""
+    calls = []
+    run = subprocess.run
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: calls.append(list(cmd)) or run(cmd, **kw))
+    so = rice.build(root=tmp_path)
+    assert so.exists() and so.parent.parent == tmp_path and so.parent.name.startswith("native-")
+    assert len(calls) == 1 and calls[0][0] == rice.CXX
+    assert not any("make" in arg or "wicca_tpu/native" in arg for arg in calls[0])
+    assert [a for a in calls[0] if a.endswith(".cpp")] == [str(ROOT / "wicca_tpu_torch" / "native" / "entropy.cpp")]
+    assert rice.build(root=tmp_path) == so and len(calls) == 1  # built once, then reused
+    assert {p.parent for p in tmp_path.rglob("*") if p.is_file()} == {so.parent}
+    assert rice.build().parent.parent == ROOT / "wicca_tpu_torch" / "_build"
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "wicca_tpu_torch").rglob("*.py"))
@@ -176,3 +197,22 @@ def test_kernels_equal_plain_twins_on_the_card():
             got = dwt97_cuda.idwt97_multilevel_dequant(ll, dets, steps, emit_u8, filt=filt, recon_offset=0.3)
             assert torch.equal(got, dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets, steps, emit_u8, filt=filt,
                                                                                 recon_offset=0.3))
+
+
+@pytest.mark.cuda
+def test_container_roundtrip_on_the_card():
+    """On a card: a stream on the card serializes to the bytes of the same
+    stream on the CPU and loads back onto the card, equal plane by plane
+    (``python3 chip_smoke.py`` phase 3e runs the full-size frame)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, 96, 128), dtype=np.uint8))
+    for kw in (dict(), dict(wavelet="legall5.3", color="rct"), dict(wavelet="bior4.4", color="ict", chroma_gain=2.0)):
+        on_card = encode(x.cuda(), levels=3, **kw)
+        blob = container.serialize(on_card, quality_layers=2)
+        back = container.deserialize(blob)
+        assert back.ll.device.type == "cuda" and torch.equal(back.ll, on_card.ll)
+        assert all(torch.equal(a, b) for da, db in zip(back.details, on_card.details) for a, b in zip(da, db))
+        assert torch.equal(decode(back, emit_u8=True), decode(on_card, emit_u8=True))
+        on_cpu = container.deserialize(blob, device="cpu")
+        assert container.serialize(on_cpu, quality_layers=2) == blob

@@ -5,9 +5,13 @@ So far it holds the Haar icon path, the 8-bit Haar codec, the lossless
 transform), the lossy float codec (CDF 9/7 and db2 lifting, the
 irreversible color transform), the whole-image lifting path of registered
 wavelets and of 9-16-bit samples, progressive and region decode, the
-lifting transforms and the single-level Haar ops. Their device work runs in
-hand-written CUDA kernels (``csrc/``, K1-K9), built with nvcc at first use;
-every kernel has a plain PyTorch twin that the CPU runs.
+lifting transforms and the single-level Haar ops; and around the codec,
+maxshift ROI coding, application metadata, the ``.wct`` container with its
+entropy coders (``native/``, host C++ built with g++ at first use),
+transcoding, SSIM/MS-SSIM and rate control (:mod:`wicca_tpu_torch.codec`).
+The device work runs in hand-written CUDA kernels (``csrc/``, K1-K9), built
+with nvcc at first use; every kernel has a plain PyTorch twin that the CPU
+runs.
 
 Device rule: a tensor input runs where it lies; a numpy input goes to
 ``device="cuda"`` unless the caller passes ``device="cpu"``; with no card
@@ -27,11 +31,12 @@ from wicca_tpu_torch.codec.pipeline import (
     entropy_ratio,
     estimated_entropy_bytes,
     icon_from_stream,
+    with_metadata,
 )
 from wicca_tpu_torch.coder import HaarCoder, LiftingCoder, WaveletCoder
 from wicca_tpu_torch.core.haar import Pyramid, block_mean_ll, dwt2, haar_icon, idwt2
 from wicca_tpu_torch.core.lifting import dwt2_lifting, idwt2_lifting, lifting_wavelets, register_wavelet
-from wicca_tpu_torch.core.metrics import mse, psnr
+from wicca_tpu_torch.core.metrics import ms_ssim, mse, psnr, ssim
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
 from wicca_tpu_torch.core.quant import QuantSpec
 
@@ -57,9 +62,12 @@ __all__ = [
     "idwt2",
     "idwt2_lifting",
     "lifting_wavelets",
+    "ms_ssim",
     "mse",
     "pad_to_multiple",
     "psnr",
     "register_wavelet",
+    "ssim",
     "unpad",
+    "with_metadata",
 ]

@@ -18,7 +18,9 @@
 ``encode`` -> :class:`CodeStream`; ``decode`` -> reconstructed image,
 cropped to the original dims; ``decode_at_level`` (resolution
 scalability), ``decode_region`` (spatial random access) and
-``icon_from_stream`` read only part of a stream.
+``icon_from_stream`` read only part of a stream. Every decode undoes
+maxshift ROI coding (:mod:`wicca_tpu_torch.codec.roi`) first;
+``with_metadata`` attaches application metadata, which decode ignores.
 
 Every level partition, shape and rounding step follows the JAX package, so
 streams cross between the two (:mod:`wicca_tpu_torch.codec.interop`). The
@@ -49,15 +51,9 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     idwt_multilevel_dequant,
 )
 
-# where each missing piece of the codec is scheduled (ROADMAP.md, Queue 1)
-_LATER = {"roi": "Queue 1 item 7d (codec/roi.py)"}
 # wavelet -> filter of the tile-local lifting kernels: K6/K7, K8/K9
 _INT_TILED = {"legall5.3": "legall5.3", "cdf53": "legall5.3", "haar_int": "haar_int"}
 _FLOAT_TILED = {"bior4.4": "cdf97", "cdf97": "cdf97", "db2": "db2"}
-
-
-def _not_yet(what: str, value) -> NotImplementedError:
-    return NotImplementedError(f"{what}={value!r} is not ported yet: {_LATER[what]}")
 
 
 def _pass_sizes(levels: int) -> list[int]:
@@ -279,9 +275,25 @@ def _widen_div_int(stream: CodeStream) -> CodeStream:
     return dataclasses.replace(stream, details=details, band_div=())
 
 
-def _check_decodable(stream: CodeStream) -> None:
-    if stream.roi_shift:
-        raise _not_yet("roi", stream.roi_shift)
+def _normalize_roi(stream: CodeStream) -> CodeStream:
+    """Undo maxshift ROI scaling (:mod:`wicca_tpu_torch.codec.roi`): codes
+    with ``|c| >= 2**roi_shift`` are ROI (exact ``>> roi_shift``), the rest
+    background (midpoint ``<< bg_shift``). Returns plain deadzone codes in
+    the path's native dtype (int8 haar, int16 otherwise, int32 at bit depths
+    other than 8), where they lie; no-op for streams without ROI."""
+    if not stream.roi_shift:
+        return stream
+    s, b = stream.roi_shift, stream.bg_shift
+    dt = torch.int32 if stream.bit_depth != 8 else (torch.int8 if stream.wavelet == "haar" else torch.int16)
+
+    def un(c):
+        v = c.to(torch.int32)
+        m, sg = v.abs(), torch.sign(v)
+        bg = sg * ((m << b) + (1 << (b - 1))) if b else v
+        return torch.where(m >= (1 << s), sg * (m >> s), bg).to(dt)
+
+    details = tuple(tuple(un(band) for band in bands) for bands in stream.details)
+    return dataclasses.replace(stream, details=details, roi_shift=0, bg_shift=0)
 
 
 def _fused(stream: CodeStream) -> bool:
@@ -304,6 +316,15 @@ def _folds_color(stream: CodeStream, target_level: int) -> bool:
         or (stream.color == "rct" and stream.wavelet in _INT_TILED))
 
 
+def _k7_bands(stream: CodeStream, bands):
+    """K7 reads int16 details. A layer prefix of a lossless container (and
+    nothing else) holds its widened codes as int32; an 8-bit stream's
+    details fit int16 (the encoder stores them so), so they are cast."""
+    if stream.wavelet not in _INT_TILED:
+        return bands
+    return tuple(b.to(torch.int16) for b in bands)
+
+
 def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float):
     """The fused inverse passes, coarse to fine, down to ``target_level``.
     A pass that crosses the target inverts only its coarse part; for the
@@ -318,7 +339,7 @@ def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_
         if hi <= target_level:
             break
         start = max(hi - k, target_level)
-        dets = [tuple(contiguous_aligned(b) for b in stream.details[i]) for i in range(start, hi)]
+        dets = [tuple(contiguous_aligned(b) for b in _k7_bands(stream, stream.details[i])) for i in range(start, hi)]
         steps = tuple(_scaled_steps(stream, i + 1) for i in range(start, hi))
         ch, cw = dets[-1][0].shape[-2], dets[-1][0].shape[-1]
         x = contiguous_aligned(x[..., :ch, :cw])
@@ -386,8 +407,7 @@ def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5)
     high-bit-depth streams). ``recon_offset``
     is the deadzone reconstruction point of lossy codes as a fraction of the
     bin (0.5 = midpoint). Runs where the stream's tensors lie."""
-    _check_decodable(stream)
-    stream = _widen_div_int(stream)
+    stream = _widen_div_int(_normalize_roi(stream))
     folded = _folds_color(stream, 0)
     x = _inverse(stream, 0, emit_u8 and (stream.color == "none" or folded), recon_offset)
     if not folded:
@@ -408,8 +428,7 @@ def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False
         raise ValueError(f"target_level must be in [0, {stream.levels}]")
     if target_level == 0:
         return decode(stream, emit_u8=emit_u8, recon_offset=recon_offset)
-    _check_decodable(stream)
-    stream = _widen_div_int(stream)
+    stream = _widen_div_int(_normalize_roi(stream))
     h, w = stream.orig_shape
     folded = _folds_color(stream, target_level)
     x = _inverse(stream, target_level, emit_u8 and folded, recon_offset)
@@ -422,9 +441,18 @@ def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False
 def icon_from_stream(stream: CodeStream) -> torch.Tensor:
     """Native-type icon straight from the coarse band (free at decode time;
     uint8, or uint16 for high-bit-depth streams); a color-transformed
-    stream's LL gets the inverse rotation first."""
-    _check_decodable(stream)
+    stream's LL gets the inverse rotation first. ROI coding never touches
+    the LL, so an ROI stream gives its plain stream's icon."""
     return _emit_native(stream, _undo_color(stream, stream.ll))
+
+
+def with_metadata(stream: CodeStream, meta: dict) -> CodeStream:
+    """Attach application metadata (EXIF dump, ICC profile, notes: the
+    JPEG2000 XML/UUID box analog). Values may be str (stored utf-8) or
+    bytes; ``{}`` clears. Serialized in the WCT8 header block, kept by
+    save/load and transcode, ignored by decode."""
+    items = tuple((str(k), v.encode("utf-8") if isinstance(v, str) else bytes(v)) for k, v in meta.items())
+    return dataclasses.replace(stream, metadata=items)
 
 
 def region_plan(stream: CodeStream, row0: int, row1: int, col0: int, col1: int):
@@ -464,13 +492,14 @@ def _decode_region_tiled(stream: CodeStream, row0, row1, col0, col1, emit_u8: bo
     the inverse pass cascade coarse -> fine, each pass on its tile-aligned
     window only (independent tiles), so the result equals the same crop of
     :func:`decode`."""
-    stream = _widen_div_int(stream)
+    stream = _widen_div_int(_normalize_roi(stream))
     x = None
     pa0 = pb0 = 0
     for lo, hi, a0, a1, b0, b1 in region_plan(stream, row0, row1, col0, col1):
         k = hi - lo
         dets = [
-            tuple(contiguous_aligned(b[..., a0 >> s : a1 >> s, b0 >> s : b1 >> s]) for b in stream.details[lvl - 1])
+            tuple(contiguous_aligned(b[..., a0 >> s : a1 >> s, b0 >> s : b1 >> s])
+                  for b in _k7_bands(stream, stream.details[lvl - 1]))
             for lvl, s in ((lvl, lvl - lo) for lvl in range(lo + 1, hi + 1))
         ]
         if x is None:
@@ -502,7 +531,6 @@ def decode_region(stream: CodeStream, row0: int, row1: int, col0: int, col1: int
     H, W = stream.orig_shape
     if not (0 <= row0 < row1 <= H and 0 <= col0 < col1 <= W):
         raise ValueError(f"region [{row0}:{row1}, {col0}:{col1}) outside image {(H, W)}")
-    _check_decodable(stream)
     lv = stream.levels
     align = 1 << lv
     margin = 0

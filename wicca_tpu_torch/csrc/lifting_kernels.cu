@@ -40,8 +40,10 @@
 // each band per thread, neighbouring lanes on neighbouring addresses.
 // Inverse: the same in reverse, each coefficient row read once (the strip
 // and its two tile-clamped neighbour columns, which the thread inverts
-// vertically itself), two output rows stored per step. Offsets are 32-bit
-// inside a plane, over a 64-bit plane base.
+// vertically itself), two output rows stored per step. A unit reads its
+// rows at 32-bit offsets from a 64-bit base, the start of its first row, so
+// a plane may hold 2**31 samples or more at the cost of one 64-bit product
+// per unit; plan() keeps a chunk of rows under 2**31 samples.
 //
 // The loads: a row-walking thread that loads each row when it needs it
 // keeps too few bytes in flight at the occupancy its registers allow (80-
@@ -120,20 +122,25 @@ WICCA_D void group_planes(int p, int cin, int& first, int& np) {
 
 // The launch shape of a level: R pair rows per unit, the largest power of
 // two up to kMaxRows that divides the tile and still gives kWarpsPerSm
-// units per SM (not below kMinRows).
+// units per SM (not below kMinRows), and whose chunk of rows, span(R) rows
+// of row_len samples, stays under 2**31 samples (the units' 32-bit row
+// offsets; R = 0 when not even one pair row fits).
 struct Plan {
   int rows, sgroups;
   int64_t units;
 };
 
-Plan plan(int64_t nplanes, int hb, int wb, int th, int nc) {
+template <typename Span>
+Plan plan(int64_t nplanes, int hb, int wb, int th, int nc, int64_t row_len, Span span) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int sgroups = (wb + kLanes * nc - 1) / (kLanes * nc);
   auto units = [&](int r) { return nplanes * (hb / r) * sgroups; };
+  auto fits = [&](int r) { return span(r) * row_len < (int64_t(1) << 31); };
   int r = kMaxRows;
-  while (r > 1 && (th % r != 0 || (r > kMinRows && units(r) < int64_t(kWarpsPerSm) * sms))) r /= 2;
+  while (r > 1 && (th % r != 0 || !fits(r) || (r > kMinRows && units(r) < int64_t(kWarpsPerSm) * sms))) r /= 2;
+  if (!fits(r)) return {0, sgroups, 0};
   return {r, sgroups, units(r)};
 }
 
@@ -225,10 +232,13 @@ __global__ void __launch_bounds__(kThreads)
   const bool vec = vec_ok && cs + 2 * NC <= w;
   const bool ring = Ring::ON && vec;
   const int64_t hw = int64_t(h) * w;
-  const In* src = x + int64_t(first) * hw;  // source plane k at src + k * hw
   // the unit's sample rows, tile-local: a_first .. a_last, in this order
   const int a_first = F::kHalo && n0 > 0 ? 2 * n0 - 2 : 2 * n0;
   const int a_last = n0 + rows < th ? 2 * (n0 + rows) : 2 * th - 1;
+  // row a of source k: 32-bit offset from the unit's first row (the base)
+  const int rb = mini(2 * ti0 + a_first, h - 1);
+  const In* src = x + int64_t(first) * hw + int64_t(rb) * w;
+  auto row_of = [&](int k, int a) { return src + k * hw + (mini(2 * ti0 + a, h - 1) - rb) * w; };
   const bool need_left = F::kHalo && nc0 > 0, need_right = F::kHalo && c2 == cs + 2 * NC;
   WICCA_SMEM(smem);
   // this thread's slot of row a and source k
@@ -244,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < P; ++k) {
           if (k < np) {
-            const In* row = src + k * hw + mini(2 * ti0 + a, h - 1) * w;
+            const In* row = row_of(k, a);
             Piece* p = slot(a, k);
             copy_async<2 * NC>(p, row + cs);
             unsigned char* halo = reinterpret_cast<unsigned char*>(p + kThreads);
@@ -280,7 +290,7 @@ __global__ void __launch_bounds__(kThreads)
         return;
       }
     }
-    load_window<In, NC, F::kHalo>(src + k * hw + mini(2 * ti0 + a, h - 1) * w, cs, c0, c1, c2, w, vec, xw);
+    load_window<In, NC, F::kHalo>(row_of(k, a), cs, c0, c1, c2, w, vec, xw);
   };
   // the horizontal level of row a for every plane: (low, high) per pair
   // column. Row a is in its slots once this thread's oldest group has
@@ -413,8 +423,14 @@ __global__ void __launch_bounds__(kThreads)
   // the unit's coefficient rows, tile-local: b_first .. b_last, in this order
   const int b_first = F::kHalo && n0 > 0 ? n0 - 1 : n0;
   const int b_last = n0 + rows < th ? n0 + rows : th - 1;
-  auto ll_row = [&](int q, int r) { return ll + int64_t(first + q) * llh * llw + mini(ti0 + r, llh - 1) * llw; };
-  auto band_off = [&](int q, int r) { return int64_t(first + q) * bh * bw + mini(ti0 + r, bh - 1) * bw; };
+  // rows at 32-bit offsets from the unit's first LL and band rows (the bases)
+  const int rl = mini(ti0 + b_first, llh - 1), rbb = mini(ti0 + b_first, bh - 1);
+  auto ll_row = [&](int q, int r) {
+    return ll + (int64_t(first + q) * llh + rl) * llw + (mini(ti0 + r, llh - 1) - rl) * llw;
+  };
+  auto band_off = [&](int q, int r) {
+    return (int64_t(first + q) * bh + rbb) * bw + (mini(ti0 + r, bh - 1) - rbb) * bw;
+  };
   WICCA_SMEM(smem);
   const int tid = static_cast<int>(threadIdx.y) * kLanes + static_cast<int>(threadIdx.x);
   auto slot = [&](int r, int q) {
@@ -647,7 +663,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 template <class F, typename In, int NC, bool RCT>
 cudaError_t launch_fwd(const In* x, int groups, int cin, int h, int w, int hb, int wb, int th, int tw, int32_t* ll,
                        int16_t* lh, int16_t* hl, int16_t* hh, cudaStream_t st) {
-  const Plan pl = plan(groups, hb, wb, th, NC);
+  // a chunk reads up to 2 R + 3 sample rows
+  const Plan pl = plan(groups, hb, wb, th, NC, w, [](int r) { return int64_t(2) * r + 3; });
+  if (!pl.rows) return cudaErrorInvalidValue;
   const bool vec_ok = int64_t(w) * int64_t(sizeof(In)) % 16 == 0;
   auto* kernel = lift_fwd_lines_kernel<F, In, NC, RCT>;
   constexpr size_t smem = FwdRing<In, NC, RCT>::BYTES;
@@ -686,7 +704,10 @@ struct InvArgs {
 
 template <class F, bool EMIT_U8, int NC, bool RCT>
 cudaError_t launch_inv(const InvArgs& a, cudaStream_t st) {
-  const Plan pl = plan(a.groups, a.hb, a.wb, a.th, NC);
+  // a chunk reads up to R + 2 coefficient rows
+  const Plan pl = plan(a.groups, a.hb, a.wb, a.th, NC, a.llw > a.bw ? a.llw : a.bw,
+                       [](int r) { return int64_t(r) + 2; });
+  if (!pl.rows) return cudaErrorInvalidValue;
   const bool vec_ok = int64_t(a.llw) * 4 % 16 == 0 && int64_t(a.bw) * 2 % 16 == 0;
   auto* kernel = lift_inv_lines_kernel<F, EMIT_U8, NC, RCT>;
   constexpr size_t smem = InvRing<NC, RCT>::BYTES;
@@ -723,7 +744,7 @@ extern "C" {
 // (planes, hb, wb) int16. (th, tw): the level's tile in band coordinates.
 // filt: 0 LeGall 5/3, 1 integer Haar. color 1: the planes are images of cin
 // (3 or 4) planes R, G, B (, A), and the level lifts Y, U, V (, A) of the
-// RCT. Every plane holds fewer than 2**31 samples.
+// RCT.
 int wicca_lift_fwd_level(const void* x, int from_u8, int filt, int64_t planes, int64_t h, int64_t w, int64_t hb,
                          int64_t wb, int64_t th, int64_t tw, void* ll, void* lh, void* hl, void* hh, int color,
                          int cin, void* stream) {

@@ -88,11 +88,14 @@ def _check_color(t: torch.Tensor, color: str) -> None:
         raise ValueError(f"color='rct' needs planar (..., 3|4, H, W) planes, got {tuple(t.shape)}")
 
 
-def _check_plane(name: str, *shapes) -> None:
-    """The kernels index inside a plane with 32-bit offsets."""
-    for shape in shapes:
-        if shape[-2] * shape[-1] >= 1 << 31:
-            raise ValueError(f"{name}: a plane of {tuple(shape[-2:])} has 2**31 samples or more")
+# a unit of K6/K7 reads its rows at 32-bit offsets from a 64-bit base, and
+# even a one-pair-row chunk spans 5 rows (csrc/lifting_kernels.cu, plan())
+_MAX_ROW = ((1 << 31) - 1) // 5
+
+
+def _check_rows(name: str, *widths: int) -> None:
+    if max(widths) > _MAX_ROW:
+        raise ValueError(f"{name}: rows of {max(widths)} samples; the kernels take at most {_MAX_ROW}")
 
 
 def _check_fwd(x: torch.Tensor, k: int, filt: str, color: str = "none") -> None:
@@ -147,7 +150,7 @@ def _launch_fwd(lib, x: torch.Tensor, k: int, filt: str, stream: int, color: str
     cin = x.shape[-3] if color == "rct" else 1
     hp, th = _tiled_extent(h, _TILE_H)
     wp, tw = _tiled_extent(w, _TILE_W)
-    _check_plane("dwt53_multilevel", (hp, wp), x.shape)
+    _check_rows("dwt53_multilevel", w)
     cur, details = x, []
     for lvl in range(1, k + 1):
         hb, wb = hp >> lvl, wp >> lvl
@@ -241,7 +244,7 @@ def _launch_inv(lib, ll: torch.Tensor, details, k: int, emit_u8: bool, orig_k: i
     c, ch, cw = _planes(ll.shape), ll.shape[-2], ll.shape[-1]
     cin = ll.shape[-3] if color == "rct" else 1
     chp, cwp, th_c, tw_c = _coarse_grid(ch, cw, orig_k)
-    _check_plane("idwt53_multilevel", (chp << k, cwp << k), ll.shape, *(bands[0].shape for bands in details))
+    _check_rows("idwt53_multilevel", cwp << (k - 1), *(bands[0].shape[-1] for bands in details))
     cur = ll
     for lvl in range(k, 0, -1):
         m = 1 << (k - lvl)
