@@ -7,8 +7,10 @@ Phases, each fatal on failure:
 
 1. the card (``nvidia-smi``), torch and CUDA versions, the nvcc build of
    the kernels from ``wicca_tpu_torch/csrc`` (one nvcc per source, run
-   together) and the g++ build of the container's entropy coders from
-   ``wicca_tpu_torch/native``;
+   together) and the g++ builds of the host libraries from
+   ``wicca_tpu_torch/native``: the container's entropy coders, the folder
+   pipeline's host Haar/5-3 levels (``idwt.cpp``) and its PNG writer
+   (``pngw.cpp``, linked with zlib), each with its build time;
 2. every kernel against its plain PyTorch twin on the same CUDA tensors
    (``torch.equal``: tolerance 0) over small shapes: for K1-K3 odd sizes,
    batched input, icon depths 1-8, k = 1-3 fused levels, uint8 and float32
@@ -52,7 +54,8 @@ Phases, each fatal on failure:
       decode. ``ict`` runs through the fold: K8's first launch reads the
       uint8 frame and applies the ICT, K9's last launch applies the inverse
       ICT and emits uint8;
-   then, after phase 3's counters are read (their launches count nowhere):
+   then, after phase 3's counters are read (their launches count nowhere;
+   i runs after phase 4's timings, whose profiler records it would thin):
    e. the ``.wct`` container: Haar ``QuantSpec(1.0)``, ``legall5.3`` +
       ``rct`` and ``bior4.4`` + ``ict`` (``chroma_gain=2``) encoded on the
       card, ``serialize`` (``codec='auto'``, checksums) and ``deserialize``
@@ -70,6 +73,27 @@ Phases, each fatal on failure:
       equal to the plain twin's (K6/K7's 64-bit row offsets);
    h. rate control on a 3x2048x2048 crop: ``encode_to_bpp(crop, 1.0)`` and
       PCRD ``truncate`` to 1.0 bpp within budget, both decoding;
+   i. the folder pipeline (``encode_folder``/``decode_folder``) on a seeded
+      folder of photograph-like frames written as PNG: four 3x8704x6144, one
+      3x4000x6000 (padded) and one 1x2048x2731 grayscale frame (read as RGB,
+      as the reference's loader reads it), about 730 MB of uint8 source, and
+      a ``notes.txt`` the listing leaves out; each folder call under the
+      profiler with its own launch counters set to 0 just before and read
+      just after (exact counts: the device routes K2/K3 twice per Haar
+      frame, K6/K7 and K8/K9 once per level; the host routes none): Haar
+      ``QuantSpec(1.0)`` depth 5 encoded on the device and the host route
+      gives the same ``.wct`` bytes, equal to ``serialize(encode(frame))``;
+      its decode on both routes, in full and at ``at_level=2``, the same PNG
+      bytes, with pixels equal to ``decode(emit_u8=True)`` and
+      ``decode_at_level(st, 2)``; ``legall5.3`` + ``rct`` decodes on both
+      routes to the sources bit for bit; ``bior4.4`` + ``ict``
+      (``chroma_gain=2``) goes to the device route on ``auto`` (and on
+      ``path='host'``, which no tiled float wavelet takes) and equals the
+      in-memory decode; ``resume=True`` on the finished folder encodes
+      nothing. Printed: each run's metrics (``mp_per_s``, ``seconds``,
+      ``bytes_out``, route counts), launches and device idle share (kernel
+      time over wall time); one 3x8704x6144 frame through each stage of
+      both routes timed step by step; the pinned link's H2D and D2H GB/s;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -909,6 +933,319 @@ def phase_rate_control(x):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the folder pipeline at full size (after phase 3's counters are
+# read; each folder call reads its own counters)
+# ---------------------------------------------------------------------------
+
+# the folder: four frames of bench.py's shape, one that is not a multiple of
+# 32 (padded) and one grayscale frame (cv2 reads it as RGB, as the
+# reference's loader does)
+FOLDER = [(3, H, W)] * 4 + [(3, 4000, 6000), (1, 2048, 2731)]
+
+
+def _up4(g: np.ndarray) -> np.ndarray:
+    """Bilinear 4x upsampling of ``(c, a, b)`` to ``(c, 4(a-1), 4(b-1))``."""
+    c, a, b = g.shape
+    f = (np.arange(4, dtype=np.float32) + 0.5) / 4
+    r = (g[:, :-1, None, :] * (1 - f)[:, None] + g[:, 1:, None, :] * f[:, None]).reshape(c, (a - 1) * 4, b)
+    return (r[:, :, :-1, None] * (1 - f) + r[:, :, 1:, None] * f).reshape(c, (a - 1) * 4, (b - 1) * 4)
+
+
+def photo_like(shape, seed: int) -> np.ndarray:
+    """Photograph-like uint8 planar content from ``seed``: a smooth field of
+    three octaves (4, 16 and 64 pixels) plus noise, as
+    ``tests/test_host_decode.py::photo`` makes with cv2, in numpy. (Pure
+    noise is the entropy coders' worst case, left open in PERF.md.)"""
+    rng = np.random.default_rng(seed)
+    c, h, w = shape
+
+    def noise(a, b, amp):
+        return rng.standard_normal((c, a, b), dtype=np.float32) * np.float32(amp)
+
+    hq, wq = h // 4 + 2, w // 4 + 2
+    field = noise(hq, wq, 18.0)
+    field += _up4(noise(hq // 4 + 2, wq // 4 + 2, 30.0))[:, :hq, :wq]
+    field += _up4(_up4(noise(hq // 16 + 3, wq // 16 + 3, 42.0)))[:, :hq, :wq]
+    img = _up4(field)[:, :h, :w]
+    img += rng.standard_normal((c, h, w), dtype=np.float32) * np.float32(3.0)
+    img += np.float32(128.0)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_folder(src, seed: int) -> list:
+    """The seeded folder, written as PNG (and a note that the listing must
+    leave out); returns each frame as the loader gives it (planar RGB)."""
+    import concurrent.futures
+
+    from wicca_tpu_torch.data.pngw import write_png
+
+    src.mkdir()
+
+    def make(i):
+        x = photo_like(FOLDER[i], seed + i)
+        write_png(str(src / f"frame{i}.png"), x)
+        return x if x.shape[0] == 3 else np.repeat(x, 3, axis=0)
+
+    with concurrent.futures.ThreadPoolExecutor(len(FOLDER)) as pool:
+        frames = list(pool.map(make, range(len(FOLDER))))
+    (src / "notes.txt").write_text("not an image: the folder listing leaves it out\n")
+    return frames
+
+
+def read_pngs(paths) -> list:
+    """PNG files read back with cv2 as planar RGB arrays (a pool of reads)."""
+    import concurrent.futures
+
+    import cv2
+
+    def read(p):
+        a = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
+        if a is None:
+            raise AssertionError(f"{p}: cv2 cannot read it")
+        return np.moveaxis(cv2.cvtColor(a, cv2.COLOR_BGR2RGB), -1, 0) if a.ndim == 3 else a[None]
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return list(pool.map(read, paths))
+
+
+def folder_call(card: str, dev, what: str, fn, *args, **kw):
+    """One folder call on ``dev`` with the launch counters set to 0 just
+    before and read just after, under the profiler on a card: its metrics,
+    its launches, its wall time and the device's kernel and copy time over
+    it (the idle share is the share of the wall time without a kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_all_launches()
+    cuda = dev.type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        m = fn(*args, device=dev, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copy_us = sum(e.device_time for e in events if e.name.startswith(("Memcpy", "Memset")))
+    kernel_us = sum(e.device_time for e in events) - copy_us
+    recorded = sum(1 for e in events if any(sym in e.name for _, _, sym in KERNELS.values()))
+    if recorded < sum(launches.values()):
+        print(f"  note: the profiler recorded {recorded} of the {sum(launches.values())} launches of {what}")
+    row = {"run": what, "metrics": m, "launches": launches, "wall_s": wall, "kernel_ms": kernel_us / 1e3,
+           "copy_ms": copy_us / 1e3, "idle_share": 1 - kernel_us / 1e6 / wall}
+    print(f"phase 3i [{card}]: {what}: {json.dumps(m)}; launches {json.dumps(launches)}; kernels "
+          f"{kernel_us / 1e3:.3f} ms, copies {copy_us / 1e3:.3f} ms over {wall:.3f} s (idle share "
+          f"{row['idle_share']:.5f})", flush=True)
+    return m, row
+
+
+def check_launches(what: str, row, want: dict) -> None:
+    """The folder call launched exactly ``want`` (absent kernels: none)."""
+    if row["launches"] != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {row['launches']}, expected {want}")
+
+
+def check_same_files(what: str, a, b, names) -> None:
+    for name in names:
+        if (a / name).read_bytes() != (b / name).read_bytes():
+            raise AssertionError(f"{what}: {a / name} and {b / name} differ")
+
+
+def check_pixels(what: str, got: list, want: list, tol: int = 0) -> None:
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else w
+        if g.shape != w.shape or np.abs(g.astype(np.int16) - w.astype(np.int16)).max() > tol:
+            raise AssertionError(f"{what}: frame {i} {g.shape} differs from {w.shape} by more than {tol}")
+
+
+def stage_split(src, tmp, dev) -> dict:
+    """One 3 x 8704 x 6144 frame through each stage of the two folder
+    routes, timed step by step (host clock around work that ends in a
+    wait; CUDA events around the device encode and decode)."""
+    from wicca_tpu_torch import QuantSpec, decode, encode
+    from wicca_tpu_torch.codec import container, host_decode, host_encode, transfer
+    from wicca_tpu_torch.data.loader import load_image, to_planar
+    from wicca_tpu_torch.data.pngw import write_png
+
+    spec = QuantSpec(base_step=1.0)
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        out[name] = time.perf_counter() - t0
+        return r
+
+    def events(name, fn):
+        if dev.type != "cuda":
+            return timed(name, fn)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn()
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / 1e3
+        return r
+
+    planar = timed("load_s", lambda: to_planar(load_image(src / "frame0.png")))
+    x = timed("h2d_s", lambda: transfer.put_array(planar, dev))
+    st = events("device_encode_s", lambda: encode(x, levels=LEVELS, spec=spec))
+    host = timed("d2h_s", lambda: transfer.fetch_stream(st))
+    blob = timed("serialize_s", lambda: container.serialize(host))
+    timed("file_write_s", lambda: (tmp / "stage.wct").write_bytes(blob))
+    timed("host_encode_s", lambda: host_encode.host_encode(planar, levels=LEVELS, spec=spec))
+    data = timed("read_s", lambda: (tmp / "stage.wct").read_bytes())
+    back = timed("deserialize_s", lambda: container.deserialize(data, device="cpu"))
+    up = timed("decode_h2d_s", lambda: transfer.put_stream(back, dev))
+    rec = events("device_decode_s", lambda: decode(up, emit_u8=True))
+    arr = timed("decode_d2h_s", lambda: transfer.fetch_array_parallel(rec))
+    ncpu = os.cpu_count() or 1
+    timed("png_write_s", lambda: write_png(str(tmp / "stage.png"), arr, threads=max(1, ncpu // min(8, ncpu))))
+    timed("png_write_all_cores_s", lambda: write_png(str(tmp / "stage.png"), arr))
+    timed("host_decode_s", lambda: host_decode.host_decode(back))
+    out["frame_bytes"] = planar.nbytes
+    out["wct_bytes"] = len(blob)
+    if dev.type != "cuda":
+        return out
+    # the pinned link: one frame's upload and its codes' download, DMA only
+    pinned = torch.from_numpy(planar).pin_memory()
+    events("h2d_dma_s", lambda: pinned.to(dev, non_blocking=True))
+    planes = [st.ll] + flat(st.details)
+    sinks = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in planes]
+    events("d2h_dma_s", lambda: [s.copy_(p, non_blocking=True) for s, p in zip(sinks, planes)])
+    out["stream_bytes"] = nbytes(*planes)
+    out["h2d_GBps"] = planar.nbytes / out["h2d_dma_s"] / 1e9
+    out["d2h_GBps"] = out["stream_bytes"] / out["d2h_dma_s"] / 1e9
+    return out
+
+
+def phase_folder(seed: int, card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 3i, each check fatal: the folder pipeline on a seeded folder of
+    photograph-like frames (FOLDER; about 730 MB of uint8 source as PNG):
+    1. Haar QuantSpec(1.0) depth 5 through ``encode_folder`` with
+       ``path='device'`` and ``path='host'``: the same .wct bytes, equal to
+       ``serialize(encode(frame))`` in memory; K2 twice per frame on the
+       device route, no launch on the host route;
+    2. ``decode_folder`` of those files on both routes, in full and at
+       ``at_level=2``: the same PNG bytes from both routes, pixels equal to
+       ``decode(emit_u8=True)`` and ``decode_at_level(st, 2)``;
+    3. ``legall5.3`` + ``rct`` depth 5: the decoded PNGs of both routes equal
+       the sources bit for bit;
+    4. ``bior4.4`` + ``ict`` (``chroma_gain=2``): ``auto`` sends every frame
+       to the device route (no host route takes a tiled float wavelet, so
+       ``path='host'`` does too); the PNGs equal the in-memory decode;
+    5. ``resume=True`` on the finished Haar folder encodes nothing."""
+    import tempfile
+    from pathlib import Path
+
+    from wicca_tpu_torch import QuantSpec, decode, decode_at_level, encode
+    from wicca_tpu_torch.codec import batch, container, host_decode, host_encode, transfer
+
+    spec = QuantSpec(base_step=1.0)
+    n = len(FOLDER)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="wicca_folder_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        frames = write_folder(tmp / "src", seed)
+        source_mb = sum(int(np.prod(s)) for s in FOLDER) / 1e6
+        print(f"phase 3i [{card}]: folder of {n} PNG frames ({source_mb:.1f} MB of uint8 source, "
+              f"{sum(p.stat().st_size for p in (tmp / 'src').glob('*.png')) / 1e6:.1f} MB as PNG) written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        wct = [f"frame{i}.wct" for i in range(n)]
+        png = [f"frame{i}.png" for i in range(n)]
+
+        # 1. Haar encode on both routes
+        for route in ("device", "host"):
+            m, row = folder_call(card, dev, f"encode haar path={route}", batch.encode_folder, tmp / "src",
+                                 tmp / f"haar_{route}",
+                                 levels=LEVELS, spec=spec, path=route)
+            rows.append(row)
+            if (m["images"], m[f"{route}_encoded"]) != (n, n):
+                raise AssertionError(f"haar encode path={route}: {m}")
+            check_launches(f"haar encode path={route}", row,
+                           {"dwt_multilevel_quant": 2 * n if route == "device" else 0})
+        check_same_files("haar .wct across routes", tmp / "haar_device", tmp / "haar_host", wct)
+        streams = []
+        for i, x in enumerate(frames):
+            st = encode(torch.from_numpy(x).to(dev), levels=LEVELS, spec=spec)
+            if container.serialize(st) != (tmp / "haar_device" / wct[i]).read_bytes():
+                raise AssertionError(f"haar: {wct[i]} differs from serialize(encode(frame)) in memory")
+            streams.append(st)
+
+        # 2. Haar decode on both routes, in full and at level 2
+        for at in (0, 2):
+            for route in ("device", "host"):
+                m, row = folder_call(card, dev, f"decode haar at_level={at} path={route}", batch.decode_folder,
+                                     tmp / "haar_device", tmp / f"haar_png{at}_{route}", at_level=at, path=route)
+                rows.append(row)
+                if (m["images"], m[f"{route}_decoded"]) != (n, n):
+                    raise AssertionError(f"haar decode at_level={at} path={route}: {m}")
+                check_launches(f"haar decode at_level={at} path={route}", row,
+                               {"idwt_multilevel_dequant": 2 * n if route == "device" else 0})
+            check_same_files(f"haar PNGs at_level={at} across routes", tmp / f"haar_png{at}_device",
+                             tmp / f"haar_png{at}_host", png)
+            want = [decode(st, emit_u8=True) if at == 0 else decode_at_level(st, at, emit_u8=True) for st in streams]
+            check_pixels(f"haar PNGs at_level={at}", read_pngs(tmp / f"haar_png{at}_device" / p for p in png), want)
+        del streams
+
+        # 3. lossless legall5.3 + rct
+        m, row = folder_call(card, dev, "encode legall5.3+rct path=auto", batch.encode_folder, tmp / "src",
+                             tmp / "lossless",
+                             levels=LEVELS, wavelet="legall5.3", color="rct")
+        rows.append(row)
+        if m["device_encoded"] != n:
+            raise AssertionError(f"legall5.3+rct encode: {m}")
+        check_launches("legall5.3+rct encode", row, {"dwt53_multilevel": LEVELS * n})  # one launch per level
+        for route in ("device", "host"):
+            m, row = folder_call(card, dev, f"decode legall5.3+rct path={route}", batch.decode_folder, tmp / "lossless",
+                                 tmp / f"lossless_png_{route}", path=route)
+            rows.append(row)
+            if m[f"{route}_decoded"] != n:
+                raise AssertionError(f"legall5.3+rct decode path={route}: {m}")
+            check_launches(f"legall5.3+rct decode path={route}", row,
+                           {"idwt53_multilevel": LEVELS * n if route == "device" else 0})
+        check_same_files("legall5.3+rct PNGs across routes", tmp / "lossless_png_device", tmp / "lossless_png_host",
+                         png)
+        check_pixels("legall5.3+rct PNGs against the sources", read_pngs(tmp / "lossless_png_device" / p for p in png),
+                     frames)
+
+        # 4. lossy bior4.4 + ict, chroma gain 2
+        float_kw = dict(levels=LEVELS, spec=spec, wavelet="bior4.4", color="ict", chroma_gain=2.0)
+        m, row = folder_call(card, dev, "encode bior4.4+ict path=auto", batch.encode_folder, tmp / "src", tmp / "lossy",
+                             **float_kw)
+        rows.append(row)
+        if m["device_encoded"] != n:
+            raise AssertionError(f"bior4.4+ict encode: {m}")
+        check_launches("bior4.4+ict encode", row, {"dwt97_multilevel_quant": LEVELS * n})
+        want = [decode(encode(torch.from_numpy(x).to(dev), **float_kw), emit_u8=True) for x in frames]
+        for route in ("auto", "host"):
+            m, row = folder_call(card, dev, f"decode bior4.4+ict path={route}", batch.decode_folder, tmp / "lossy",
+                                 tmp / f"lossy_png_{route}", path=route)
+            rows.append(row)
+            if m["device_decoded"] != n:
+                raise AssertionError(f"bior4.4+ict decode path={route}: {m}")
+            check_launches(f"bior4.4+ict decode path={route}", row, {"idwt97_multilevel_dequant": LEVELS * n})
+            check_pixels(f"bior4.4+ict PNGs path={route}", read_pngs(tmp / f"lossy_png_{route}" / p for p in png),
+                         want, tol=0 if route == "auto" else 1)
+        del want
+
+        # 5. resume on the finished folder
+        m, row = folder_call(card, dev, "encode haar resume", batch.encode_folder, tmp / "src", tmp / "haar_device",
+                             levels=LEVELS, spec=spec, resume=True)
+        rows.append(row)
+        if (m["images"], m["resumed"]) != (0, n):
+            raise AssertionError(f"resume: {m}")
+
+        stages = stage_split(tmp / "src", tmp, dev)
+    rates = {"link_Bps": transfer.link_bandwidth(device=dev), "host_encode_MPs": host_encode.measured_mp_per_s(),
+             "host_decode_MPs": {k: host_decode.measured_mp_per_s(k) for k in ("haar", "tiled53")},
+             "device_MPs": {k: e.rate() for k, e in batch._device_mps.items()}}
+    return {"frames": [list(s) for s in FOLDER], "source_MB": source_mb, "runs": rows, "stages": stages,
+            "rates": rates}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -1221,6 +1558,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rice.library()  # the container's entropy coders (g++), so that phase 3e times coding alone
     print(f"entropy library build: {time.perf_counter() - t0:.1f} s", flush=True)
+    from wicca_tpu_torch.native import idwt, pngw
+
+    for what, lib in (("host IDWT library (idwt.cpp)", idwt), ("PNG writer library (pngw.cpp, -lz)", pngw)):
+        t0 = time.perf_counter()
+        lib.library()  # the folder pipeline's host route and writer, so that phase 3i times them alone
+        print(f"{what} build: {time.perf_counter() - t0:.1f} s", flush=True)
     name = torch.cuda.get_device_name(0)
     rate = hbm_bytes_per_s(name)
 
@@ -1294,11 +1637,30 @@ def main(argv=None) -> int:
           flush=True)
 
     rows, kernels, e2e = phase_times(x, launches, max_abs_err, args.reps, rate)
+    # phase 3i after phase 4's timings: its profiler sessions would cost
+    # phase 4's profiler records
+    t0 = time.perf_counter()
+    folder = phase_folder(args.seed, card)
+    st = folder["stages"]
+    print(f"phase 3i [{card}; host {cpu}]: one 3x{H}x{W} frame, encode: load {st['load_s']:.3f} s, H2D "
+          f"{st['h2d_s']:.4f} s, device encode {st['device_encode_s']:.4f} s, D2H {st['d2h_s']:.4f} s, serialize "
+          f"{st['serialize_s']:.3f} s, file write {st['file_write_s']:.3f} s (host encode "
+          f"{st['host_encode_s']:.3f} s); decode: read {st['read_s']:.3f} s, deserialize "
+          f"{st['deserialize_s']:.3f} s, H2D {st['decode_h2d_s']:.4f} s, "
+          f"device decode {st['device_decode_s']:.4f} s, D2H {st['decode_d2h_s']:.4f} s, PNG write "
+          f"{st['png_write_s']:.3f} s ({st['png_write_all_cores_s']:.3f} s on all cores) (host decode "
+          f"{st['host_decode_s']:.3f} s)", flush=True)
+    print(f"phase 3i [{card}]: pinned link: H2D {st['h2d_GBps']:.2f} GB/s ({st['frame_bytes']} bytes), D2H "
+          f"{st['d2h_GBps']:.2f} GB/s ({st['stream_bytes']} bytes), the cost model's link EMA "
+          f"{folder['rates']['link_Bps'] / 1e9:.2f} GB/s; rates {json.dumps(folder['rates'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     for r in rows:
         print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
-    host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc}
+    host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc,
+            "folder": folder}
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

@@ -2,6 +2,7 @@
 the device rule, and its CPU runs never touch a kernel."""
 
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +16,7 @@ from wicca_tpu_torch import HaarCoder, QuantSpec, decode, decode_at_level, encod
 from wicca_tpu_torch._device import resolve_device
 from wicca_tpu_torch.codec import container
 from wicca_tpu_torch.codec.interop import stream_from_arrays
-from wicca_tpu_torch.native import rice
+from wicca_tpu_torch.native import idwt, pngw, rice
 from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,7 +44,10 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
                  "wicca_tpu_torch.coder", "wicca_tpu_torch.core.haar", "wicca_tpu_torch.ops.dwt53_cuda",
                  "wicca_tpu_torch.core.lifting", "wicca_tpu_torch.core.color", "wicca_tpu_torch.ops.dwt97_cuda",
                  "wicca_tpu_torch.codec.container", "wicca_tpu_torch.codec.roi", "wicca_tpu_torch.codec.rd",
-                 "wicca_tpu_torch.codec.transcode", "wicca_tpu_torch.native.rice"):
+                 "wicca_tpu_torch.codec.transcode", "wicca_tpu_torch.native.rice", "wicca_tpu_torch.codec.batch",
+                 "wicca_tpu_torch.codec.host_encode", "wicca_tpu_torch.codec.host_decode",
+                 "wicca_tpu_torch.codec.transfer", "wicca_tpu_torch.native.idwt", "wicca_tpu_torch.native.pngw",
+                 "wicca_tpu_torch.data.pngw", "wicca_tpu_torch.data.loader", "wicca_tpu_torch.utils.ema"):
         assert name in res["modules"]
 
 
@@ -62,6 +66,28 @@ def test_entropy_library_builds_from_the_port_alone(tmp_path, monkeypatch):
     assert rice.build(root=tmp_path) == so and len(calls) == 1  # built once, then reused
     assert {p.parent for p in tmp_path.rglob("*") if p.is_file()} == {so.parent}
     assert rice.build().parent.parent == ROOT / "wicca_tpu_torch" / "_build"
+
+
+@pytest.mark.parametrize("lib,flags,libs", [(idwt, ["-ffp-contract=off", "-pthread"], []),
+                                             (pngw, ["-pthread"], ["-lz"])])
+def test_host_libraries_build_from_the_port_alone(lib, flags, libs, tmp_path, monkeypatch):
+    """g++ builds the port's own idwt.cpp (every float operation rounded on
+    its own) and pngw.cpp (a shared object of its own, the only one linked
+    with zlib) under the build root it is given; a failed build raises with
+    its command."""
+    calls = []
+    run = subprocess.run
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: calls.append(list(cmd)) or run(cmd, **kw))
+    so = lib.build(root=tmp_path)
+    assert so.exists() and so.parent.parent == tmp_path and lib.build(root=tmp_path) == so and len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "g++" and all(f in cmd for f in flags) and [a for a in cmd if a.startswith("-l")] == libs
+    assert "-march=native" not in cmd and not any("make" in a or "wicca_tpu/native" in a for a in cmd)
+    assert [a for a in cmd if a.endswith(".cpp")] == [str(lib.SOURCE)]
+    assert lib.SOURCE.parent == ROOT / "wicca_tpu_torch" / "native"
+    assert "-lz" not in rice.build_command(rice.CXX, so) and "-lz" not in idwt.build_command(idwt.CXX, so)
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        lib.build(cxx="no-such-compiler", root=tmp_path)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "wicca_tpu_torch").rglob("*.py"))
@@ -86,6 +112,29 @@ def test_numpy_input_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device(img, "cuda")
     assert resolve_device(img, "cpu") == torch.device("cpu")
+
+
+def test_folder_runs_need_a_card_or_device_cpu(tmp_path, monkeypatch):
+    """A folder of numpy frames runs on the card unless device='cpu': with
+    no card the folder calls raise, also when every frame would take the
+    host route."""
+    import cv2
+
+    from wicca_tpu_torch.codec import batch as tbatch
+    from wicca_tpu_torch.codec import transfer
+
+    (tmp_path / "src").mkdir()
+    cv2.imwrite(str(tmp_path / "src" / "a.png"), np.zeros((16, 24, 3), np.uint8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in ("auto", "host"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tbatch.encode_folder(tmp_path / "src", tmp_path / "wct", path=path)
+    tbatch.encode_folder(tmp_path / "src", tmp_path / "wct", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbatch.decode_folder(tmp_path / "wct", tmp_path / "png")
+    with pytest.raises(RuntimeError):
+        transfer.link_bandwidth(probe=True)
+    assert transfer.link_bandwidth(probe=True, device="cpu") == math.inf and not transfer.enabled()
 
 
 def test_tensor_runs_where_it_lies():
@@ -216,3 +265,34 @@ def test_container_roundtrip_on_the_card():
         assert torch.equal(decode(back, emit_u8=True), decode(on_card, emit_u8=True))
         on_cpu = container.deserialize(blob, device="cpu")
         assert container.serialize(on_cpu, quality_layers=2) == blob
+
+
+@pytest.mark.cuda
+def test_folder_pipeline_on_the_card(tmp_path):
+    """On a card: a folder through both encode routes gives the same .wct
+    bytes, and both decode routes the same PNG bytes, the device routes
+    launching K2/K3 and the host routes none (``python3 chip_smoke.py``
+    phase 3i runs the full-size folder)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    import cv2
+
+    from wicca_tpu_torch.codec import batch
+
+    (tmp_path / "src").mkdir()
+    rng = np.random.default_rng(2)
+    for i in range(3):
+        cv2.imwrite(str(tmp_path / "src" / f"im{i}.png"), rng.integers(0, 256, (96, 160, 3), dtype=np.uint8))
+    for path in ("host", "device"):
+        dwt_cuda.reset_launches()
+        m = batch.encode_folder(tmp_path / "src", tmp_path / f"wct_{path}", levels=3, spec=QuantSpec(1.0), path=path)
+        assert m[f"{path}_encoded"] == 3 and dwt_cuda.LAUNCHES["dwt_multilevel_quant"] == (3 if path == "device" else 0)
+    for name in (f"im{i}.wct" for i in range(3)):
+        assert (tmp_path / "wct_host" / name).read_bytes() == (tmp_path / "wct_device" / name).read_bytes()
+    for path in ("host", "device"):
+        dwt_cuda.reset_launches()
+        m = batch.decode_folder(tmp_path / "wct_host", tmp_path / f"png_{path}", path=path)
+        assert m[f"{path}_decoded"] == 3
+        assert dwt_cuda.LAUNCHES["idwt_multilevel_dequant"] == (3 if path == "device" else 0)
+    for name in (f"im{i}.png" for i in range(3)):
+        assert (tmp_path / "png_host" / name).read_bytes() == (tmp_path / "png_device" / name).read_bytes()

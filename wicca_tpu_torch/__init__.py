@@ -8,7 +8,10 @@ wavelets and of 9-16-bit samples, progressive and region decode, the
 lifting transforms and the single-level Haar ops; and around the codec,
 maxshift ROI coding, application metadata, the ``.wct`` container with its
 entropy coders (``native/``, host C++ built with g++ at first use),
-transcoding, SSIM/MS-SSIM and rate control (:mod:`wicca_tpu_torch.codec`).
+transcoding, SSIM/MS-SSIM and rate control, and the folder pipeline
+(``encode_folder``/``decode_folder``: image IO, host-or-device routing by a
+measured cost model, the host encode and decode routes on host C++, pinned
+transfers and a strip-parallel PNG writer) (:mod:`wicca_tpu_torch.codec`).
 The device work runs in hand-written CUDA kernels (``csrc/``, K1-K9), built
 with nvcc at first use; every kernel has a plain PyTorch twin that the CPU
 runs.
@@ -21,6 +24,9 @@ The package imports torch, numpy and the standard library only — never jax
 and never ``wicca_tpu``.
 """
 
+from wicca_tpu_torch.codec.batch import decode_folder, encode_folder
+from wicca_tpu_torch.codec.host_decode import host_decode
+from wicca_tpu_torch.codec.host_encode import host_encode
 from wicca_tpu_torch.codec.pipeline import (
     CodeStream,
     compression_ratio,
@@ -51,13 +57,17 @@ __all__ = [
     "compression_ratio",
     "decode",
     "decode_at_level",
+    "decode_folder",
     "decode_region",
     "dwt2",
     "dwt2_lifting",
     "encode",
+    "encode_folder",
     "entropy_ratio",
     "estimated_entropy_bytes",
     "haar_icon",
+    "host_decode",
+    "host_encode",
     "icon_from_stream",
     "idwt2",
     "idwt2_lifting",

@@ -4,9 +4,8 @@ adaptive Rice (container codec 0) and the context-modeled range coder
 ``wicca_tpu/native/rice.py``).
 
 The library is built with ``g++`` at first use, from the port's own copy of
-``entropy.cpp``, into ``wicca_tpu_torch/_build/native-<hash>/``, keyed by a
-hash of the source and the compiler command and guarded by a file lock, as
-``ops/_build.py`` builds the kernels. Nothing runs when the module is
+``entropy.cpp``, into ``wicca_tpu_torch/_build/native-<hash>/``
+(:mod:`wicca_tpu_torch.native._cxx`). Nothing runs when the module is
 imported. ctypes releases the GIL during a call, so planes coded from a
 thread pool run in parallel.
 
@@ -21,21 +20,19 @@ reference may have written them.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from wicca_tpu_torch.native import _cxx
+
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "entropy.cpp"
-BUILD_ROOT = _DIR.parent / "_build"
-CXX = "g++"
-# portable code (no -march=native): a build directory may move to another host
-CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-Wall", "-Wextra")
+BUILD_ROOT = _cxx.BUILD_ROOT
+CXX = _cxx.CXX
+CXX_FLAGS = _cxx.BASE_FLAGS
+_WHAT = "the entropy library"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -43,37 +40,14 @@ _lib: ctypes.CDLL | None = None
 
 def build_command(cxx: str, out: Path) -> list[str]:
     """The compiler command that builds the library into ``out``."""
-    return [cxx, *CXX_FLAGS, "-o", str(out), str(SOURCE)]
-
-
-def _digest(cxx: str) -> str:
-    h = hashlib.sha256(" ".join(build_command(cxx, Path("lib.so"))).encode())
-    h.update(SOURCE.read_bytes())
-    return h.hexdigest()[:16]
+    return _cxx.command(cxx, CXX_FLAGS, (SOURCE,), (), out)
 
 
 def build(cxx: str | None = None, root: Path | None = None) -> Path:
     """Build the library (once per source and command) and return its path;
     raises :class:`RuntimeError` naming the command when it cannot."""
-    cxx = CXX if cxx is None else cxx
-    out_dir = (BUILD_ROOT if root is None else Path(root)) / f"native-{_digest(cxx)}"
-    so = out_dir / "libwicca_entropy.so"
-    if so.exists():
-        return so
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # one build per tree; other processes wait and reuse it
-        if not so.exists():
-            tmp = out_dir / f"libwicca_entropy.{os.getpid()}.so"
-            cmd = build_command(cxx, tmp)
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-            except OSError as e:
-                raise RuntimeError(f"the entropy library did not build: `{' '.join(cmd)}`: {e}") from None
-            if res.returncode != 0:
-                raise RuntimeError(f"the entropy library did not build: `{' '.join(cmd)}`:\n{res.stderr}")
-            os.replace(tmp, so)
-    return so
+    return _cxx.build("wicca_entropy", (SOURCE,), CXX_FLAGS, (), CXX if cxx is None else cxx,
+                      BUILD_ROOT if root is None else root, _WHAT)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -93,11 +67,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             so = build()
-            try:
-                lib = ctypes.CDLL(str(so))
-            except OSError as e:
-                raise RuntimeError(f"the entropy library {so} did not load ({e}); it is built by "
-                                   f"`{' '.join(build_command(CXX, so))}`") from None
+            lib = _cxx.open_library(so, build_command(CXX, so), _WHAT)
             _declare(lib)
             _lib = lib
     return _lib
