@@ -55,7 +55,8 @@ Phases, each fatal on failure:
       uint8 frame and applies the ICT, K9's last launch applies the inverse
       ICT and emits uint8;
    then, after phase 3's counters are read (their launches count nowhere;
-   i runs after phase 4's timings, whose profiler records it would thin):
+   i and j run after phase 4's timings, whose profiler records they would
+   thin):
    e. the ``.wct`` container: Haar ``QuantSpec(1.0)``, ``legall5.3`` +
       ``rct`` and ``bior4.4`` + ``ict`` (``chroma_gain=2``) encoded on the
       card, ``serialize`` (``codec='auto'``, checksums) and ``deserialize``
@@ -94,6 +95,24 @@ Phases, each fatal on failure:
       ``bytes_out``, route counts), launches and device idle share (kernel
       time over wall time); one 3x8704x6144 frame through each stage of
       both routes timed step by step; the pinned link's H2D and D2H GB/s;
+   j. the classification harness (``ClassifierProcessor``, the icon route
+      forced to the device) on phase i's folder, ``transform_depth=(3, 5)``,
+      each run under the profiler with its own launch counters: the zoo
+      (SimpleCNN, MobileNetV2, ResNet50, EfficientNetB0, VGG16, DenseNet121,
+      ViTS16 at 224x224, bfloat16) loaded on the card; a deterministic numpy
+      classifier's CSVs on the card equal a ``device='cpu'`` run's byte for
+      byte, K1 launched once per bucket group and stack chunk, the K1 icons
+      equal ``icon_host``'s; the zoo run writes every classifier's CSVs at
+      every depth (none disabled); per model, the card's float32 logits (TF32
+      off for the comparison) within 1e-4 of the largest |logit| of the same
+      module on the CPU and the bfloat16 top-1 where the float32 margin is
+      clear, on a 12-image batch, with the forward's time at the harness's
+      batch, images/s and TFLOP/s (operations counted from the layer shapes);
+      ``compare='reconstruction'`` with MobileNetV2 for Haar (K2/K3),
+      ``legall5.3`` + ``rct`` (K6/K7, every best class agreeing) and
+      ``bior4.4`` + ``ict`` (K8/K9). Printed:
+      each run's MP/s and stage seconds per depth, launches, device idle
+      share;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -112,8 +131,10 @@ device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -1119,9 +1140,11 @@ def stage_split(src, tmp, dev) -> dict:
     return out
 
 
-def phase_folder(seed: int, card: str, dev=torch.device("cuda")) -> dict:
+def phase_folder(tmp, seed: int, card: str, dev=torch.device("cuda")) -> tuple[dict, list]:
     """Phase 3i, each check fatal: the folder pipeline on a seeded folder of
-    photograph-like frames (FOLDER; about 730 MB of uint8 source as PNG):
+    photograph-like frames (FOLDER; about 730 MB of uint8 source as PNG),
+    written to ``tmp/src`` (phase 3j reads it too); returns the results and
+    the frames:
     1. Haar QuantSpec(1.0) depth 5 through ``encode_folder`` with
        ``path='device'`` and ``path='host'``: the same .wct bytes, equal to
        ``serialize(encode(frame))`` in memory; K2 twice per frame on the
@@ -1135,114 +1158,424 @@ def phase_folder(seed: int, card: str, dev=torch.device("cuda")) -> dict:
        to the device route (no host route takes a tiled float wavelet, so
        ``path='host'`` does too); the PNGs equal the in-memory decode;
     5. ``resume=True`` on the finished Haar folder encodes nothing."""
-    import tempfile
-    from pathlib import Path
-
     from wicca_tpu_torch import QuantSpec, decode, decode_at_level, encode
     from wicca_tpu_torch.codec import batch, container, host_decode, host_encode, transfer
 
     spec = QuantSpec(base_step=1.0)
     n = len(FOLDER)
     rows = []
-    with tempfile.TemporaryDirectory(prefix="wicca_folder_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        frames = write_folder(tmp / "src", seed)
-        source_mb = sum(int(np.prod(s)) for s in FOLDER) / 1e6
-        print(f"phase 3i [{card}]: folder of {n} PNG frames ({source_mb:.1f} MB of uint8 source, "
-              f"{sum(p.stat().st_size for p in (tmp / 'src').glob('*.png')) / 1e6:.1f} MB as PNG) written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        wct = [f"frame{i}.wct" for i in range(n)]
-        png = [f"frame{i}.png" for i in range(n)]
+    t0 = time.perf_counter()
+    frames = write_folder(tmp / "src", seed)
+    source_mb = sum(int(np.prod(s)) for s in FOLDER) / 1e6
+    print(f"phase 3i [{card}]: folder of {n} PNG frames ({source_mb:.1f} MB of uint8 source, "
+          f"{sum(p.stat().st_size for p in (tmp / 'src').glob('*.png')) / 1e6:.1f} MB as PNG) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wct = [f"frame{i}.wct" for i in range(n)]
+    png = [f"frame{i}.png" for i in range(n)]
 
-        # 1. Haar encode on both routes
+    # 1. Haar encode on both routes
+    for route in ("device", "host"):
+        m, row = folder_call(card, dev, f"encode haar path={route}", batch.encode_folder, tmp / "src",
+                             tmp / f"haar_{route}",
+                             levels=LEVELS, spec=spec, path=route)
+        rows.append(row)
+        if (m["images"], m[f"{route}_encoded"]) != (n, n):
+            raise AssertionError(f"haar encode path={route}: {m}")
+        check_launches(f"haar encode path={route}", row,
+                       {"dwt_multilevel_quant": 2 * n if route == "device" else 0})
+    check_same_files("haar .wct across routes", tmp / "haar_device", tmp / "haar_host", wct)
+    streams = []
+    for i, x in enumerate(frames):
+        st = encode(torch.from_numpy(x).to(dev), levels=LEVELS, spec=spec)
+        if container.serialize(st) != (tmp / "haar_device" / wct[i]).read_bytes():
+            raise AssertionError(f"haar: {wct[i]} differs from serialize(encode(frame)) in memory")
+        streams.append(st)
+
+    # 2. Haar decode on both routes, in full and at level 2
+    for at in (0, 2):
         for route in ("device", "host"):
-            m, row = folder_call(card, dev, f"encode haar path={route}", batch.encode_folder, tmp / "src",
-                                 tmp / f"haar_{route}",
-                                 levels=LEVELS, spec=spec, path=route)
+            m, row = folder_call(card, dev, f"decode haar at_level={at} path={route}", batch.decode_folder,
+                                 tmp / "haar_device", tmp / f"haar_png{at}_{route}", at_level=at, path=route)
             rows.append(row)
-            if (m["images"], m[f"{route}_encoded"]) != (n, n):
-                raise AssertionError(f"haar encode path={route}: {m}")
-            check_launches(f"haar encode path={route}", row,
-                           {"dwt_multilevel_quant": 2 * n if route == "device" else 0})
-        check_same_files("haar .wct across routes", tmp / "haar_device", tmp / "haar_host", wct)
-        streams = []
-        for i, x in enumerate(frames):
-            st = encode(torch.from_numpy(x).to(dev), levels=LEVELS, spec=spec)
-            if container.serialize(st) != (tmp / "haar_device" / wct[i]).read_bytes():
-                raise AssertionError(f"haar: {wct[i]} differs from serialize(encode(frame)) in memory")
-            streams.append(st)
+            if (m["images"], m[f"{route}_decoded"]) != (n, n):
+                raise AssertionError(f"haar decode at_level={at} path={route}: {m}")
+            check_launches(f"haar decode at_level={at} path={route}", row,
+                           {"idwt_multilevel_dequant": 2 * n if route == "device" else 0})
+        check_same_files(f"haar PNGs at_level={at} across routes", tmp / f"haar_png{at}_device",
+                         tmp / f"haar_png{at}_host", png)
+        want = [decode(st, emit_u8=True) if at == 0 else decode_at_level(st, at, emit_u8=True) for st in streams]
+        check_pixels(f"haar PNGs at_level={at}", read_pngs(tmp / f"haar_png{at}_device" / p for p in png), want)
+    del streams
 
-        # 2. Haar decode on both routes, in full and at level 2
-        for at in (0, 2):
-            for route in ("device", "host"):
-                m, row = folder_call(card, dev, f"decode haar at_level={at} path={route}", batch.decode_folder,
-                                     tmp / "haar_device", tmp / f"haar_png{at}_{route}", at_level=at, path=route)
-                rows.append(row)
-                if (m["images"], m[f"{route}_decoded"]) != (n, n):
-                    raise AssertionError(f"haar decode at_level={at} path={route}: {m}")
-                check_launches(f"haar decode at_level={at} path={route}", row,
-                               {"idwt_multilevel_dequant": 2 * n if route == "device" else 0})
-            check_same_files(f"haar PNGs at_level={at} across routes", tmp / f"haar_png{at}_device",
-                             tmp / f"haar_png{at}_host", png)
-            want = [decode(st, emit_u8=True) if at == 0 else decode_at_level(st, at, emit_u8=True) for st in streams]
-            check_pixels(f"haar PNGs at_level={at}", read_pngs(tmp / f"haar_png{at}_device" / p for p in png), want)
-        del streams
-
-        # 3. lossless legall5.3 + rct
-        m, row = folder_call(card, dev, "encode legall5.3+rct path=auto", batch.encode_folder, tmp / "src",
-                             tmp / "lossless",
-                             levels=LEVELS, wavelet="legall5.3", color="rct")
+    # 3. lossless legall5.3 + rct
+    m, row = folder_call(card, dev, "encode legall5.3+rct path=auto", batch.encode_folder, tmp / "src",
+                         tmp / "lossless",
+                         levels=LEVELS, wavelet="legall5.3", color="rct")
+    rows.append(row)
+    if m["device_encoded"] != n:
+        raise AssertionError(f"legall5.3+rct encode: {m}")
+    check_launches("legall5.3+rct encode", row, {"dwt53_multilevel": LEVELS * n})  # one launch per level
+    for route in ("device", "host"):
+        m, row = folder_call(card, dev, f"decode legall5.3+rct path={route}", batch.decode_folder, tmp / "lossless",
+                             tmp / f"lossless_png_{route}", path=route)
         rows.append(row)
-        if m["device_encoded"] != n:
-            raise AssertionError(f"legall5.3+rct encode: {m}")
-        check_launches("legall5.3+rct encode", row, {"dwt53_multilevel": LEVELS * n})  # one launch per level
-        for route in ("device", "host"):
-            m, row = folder_call(card, dev, f"decode legall5.3+rct path={route}", batch.decode_folder, tmp / "lossless",
-                                 tmp / f"lossless_png_{route}", path=route)
-            rows.append(row)
-            if m[f"{route}_decoded"] != n:
-                raise AssertionError(f"legall5.3+rct decode path={route}: {m}")
-            check_launches(f"legall5.3+rct decode path={route}", row,
-                           {"idwt53_multilevel": LEVELS * n if route == "device" else 0})
-        check_same_files("legall5.3+rct PNGs across routes", tmp / "lossless_png_device", tmp / "lossless_png_host",
-                         png)
-        check_pixels("legall5.3+rct PNGs against the sources", read_pngs(tmp / "lossless_png_device" / p for p in png),
-                     frames)
+        if m[f"{route}_decoded"] != n:
+            raise AssertionError(f"legall5.3+rct decode path={route}: {m}")
+        check_launches(f"legall5.3+rct decode path={route}", row,
+                       {"idwt53_multilevel": LEVELS * n if route == "device" else 0})
+    check_same_files("legall5.3+rct PNGs across routes", tmp / "lossless_png_device", tmp / "lossless_png_host",
+                     png)
+    check_pixels("legall5.3+rct PNGs against the sources", read_pngs(tmp / "lossless_png_device" / p for p in png),
+                 frames)
 
-        # 4. lossy bior4.4 + ict, chroma gain 2
-        float_kw = dict(levels=LEVELS, spec=spec, wavelet="bior4.4", color="ict", chroma_gain=2.0)
-        m, row = folder_call(card, dev, "encode bior4.4+ict path=auto", batch.encode_folder, tmp / "src", tmp / "lossy",
-                             **float_kw)
+    # 4. lossy bior4.4 + ict, chroma gain 2
+    float_kw = dict(levels=LEVELS, spec=spec, wavelet="bior4.4", color="ict", chroma_gain=2.0)
+    m, row = folder_call(card, dev, "encode bior4.4+ict path=auto", batch.encode_folder, tmp / "src", tmp / "lossy",
+                         **float_kw)
+    rows.append(row)
+    if m["device_encoded"] != n:
+        raise AssertionError(f"bior4.4+ict encode: {m}")
+    check_launches("bior4.4+ict encode", row, {"dwt97_multilevel_quant": LEVELS * n})
+    want = [decode(encode(torch.from_numpy(x).to(dev), **float_kw), emit_u8=True) for x in frames]
+    for route in ("auto", "host"):
+        m, row = folder_call(card, dev, f"decode bior4.4+ict path={route}", batch.decode_folder, tmp / "lossy",
+                             tmp / f"lossy_png_{route}", path=route)
         rows.append(row)
-        if m["device_encoded"] != n:
-            raise AssertionError(f"bior4.4+ict encode: {m}")
-        check_launches("bior4.4+ict encode", row, {"dwt97_multilevel_quant": LEVELS * n})
-        want = [decode(encode(torch.from_numpy(x).to(dev), **float_kw), emit_u8=True) for x in frames]
-        for route in ("auto", "host"):
-            m, row = folder_call(card, dev, f"decode bior4.4+ict path={route}", batch.decode_folder, tmp / "lossy",
-                                 tmp / f"lossy_png_{route}", path=route)
-            rows.append(row)
-            if m["device_decoded"] != n:
-                raise AssertionError(f"bior4.4+ict decode path={route}: {m}")
-            check_launches(f"bior4.4+ict decode path={route}", row, {"idwt97_multilevel_dequant": LEVELS * n})
-            check_pixels(f"bior4.4+ict PNGs path={route}", read_pngs(tmp / f"lossy_png_{route}" / p for p in png),
-                         want, tol=0 if route == "auto" else 1)
-        del want
+        if m["device_decoded"] != n:
+            raise AssertionError(f"bior4.4+ict decode path={route}: {m}")
+        check_launches(f"bior4.4+ict decode path={route}", row, {"idwt97_multilevel_dequant": LEVELS * n})
+        check_pixels(f"bior4.4+ict PNGs path={route}", read_pngs(tmp / f"lossy_png_{route}" / p for p in png),
+                     want, tol=0 if route == "auto" else 1)
+    del want
 
-        # 5. resume on the finished folder
-        m, row = folder_call(card, dev, "encode haar resume", batch.encode_folder, tmp / "src", tmp / "haar_device",
-                             levels=LEVELS, spec=spec, resume=True)
-        rows.append(row)
-        if (m["images"], m["resumed"]) != (0, n):
-            raise AssertionError(f"resume: {m}")
+    # 5. resume on the finished folder
+    m, row = folder_call(card, dev, "encode haar resume", batch.encode_folder, tmp / "src", tmp / "haar_device",
+                         levels=LEVELS, spec=spec, resume=True)
+    rows.append(row)
+    if (m["images"], m["resumed"]) != (0, n):
+        raise AssertionError(f"resume: {m}")
 
-        stages = stage_split(tmp / "src", tmp, dev)
+    stages = stage_split(tmp / "src", tmp, dev)
     rates = {"link_Bps": transfer.link_bandwidth(device=dev), "host_encode_MPs": host_encode.measured_mp_per_s(),
              "host_decode_MPs": {k: host_decode.measured_mp_per_s(k) for k in ("haar", "tiled53")},
              "device_MPs": {k: e.rate() for k, e in batch._device_mps.items()}}
     return {"frames": [list(s) for s in FOLDER], "source_MB": source_mb, "runs": rows, "stages": stages,
-            "rates": rates}
+            "rates": rates}, frames
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the classification harness and the model zoo on phase 3i's folder
+# (after phase 3's counters are read; each harness run reads its own)
+# ---------------------------------------------------------------------------
+
+ZOO = ("SimpleCNN", "MobileNetV2", "ResNet50", "EfficientNetB0", "VGG16", "DenseNet121", "ViTS16")
+HARNESS_DEPTHS = (3, 5)
+MODEL_SHAPE = (224, 224)
+# stated tolerances, relative to the largest |logit| of the float32 model on
+# the CPU: the card's float32 (TF32 off) differs only in summation order and
+# convolution algorithm (TF32 would miss this by an order of magnitude); the
+# zoo's bfloat16 compute keeps top-1 wherever the float32 top-1 margin is
+# more than twice BF16_TOL (a few bfloat16 roundings, 2**-8 each, through
+# the depth; tests/test_torch_models.py holds the same bound against JAX)
+F32_TOL = 1e-4
+BF16_TOL = 2e-2
+
+
+def deterministic_classifier(shape=(32, 32), seed=5):
+    """A numpy classifier for byte-equality runs: logits are a fixed random
+    projection of the resized pixels (float64, so the BLAS order does not
+    reach the float32 logits)."""
+    from wicca_tpu_torch.config.constants import DEC_PRED, MODEL, PRE_INP, SHAPE
+    from wicca_tpu_torch.models.imagenet import decode_predictions
+
+    w = np.random.default_rng(seed).standard_normal((shape[0] * shape[1] * 3, 1000))
+
+    def model(batch):
+        return (np.asarray(batch, np.float64).reshape(len(batch), -1) @ w).astype(np.float32)
+
+    return {MODEL: model, PRE_INP: lambda x: np.asarray(x, np.float32) / 255.0, DEC_PRED: decode_predictions,
+            SHAPE: shape}
+
+
+def icon_launches_expected(frames, depth: int) -> int:
+    """K1 launches of one icon batch of ``frames``: one per group of
+    same-bucket frames and 512 MB stack chunk (``harness/processor.py``)."""
+    from wicca_tpu_torch.harness import processor
+
+    bucket = max(processor._BUCKET, 1 << depth)
+    groups: dict = {}
+    for f in frames:
+        shape = (f.shape[0], -(-f.shape[1] // bucket) * bucket, -(-f.shape[2] // bucket) * bucket)
+        groups[shape] = groups.get(shape, 0) + 1
+    return sum(-(-n // max(1, processor._MAX_STACK_BYTES // int(np.prod(s)))) for s, n in groups.items())
+
+
+def harness_run(card: str, dev, what: str, src, out, classifiers, **kw) -> dict:
+    """One ``process_classifiers`` run on ``dev`` over ``src`` with the launch
+    counters set to 0 just before and read just after, under the profiler on
+    a card; fails unless every classifier wrote both CSVs at every depth
+    (a disabled classifier writes none). Returns its launches, run metrics
+    per depth, wall time and the device's busy time (the union of kernel
+    intervals over all streams) and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wicca_tpu_torch.analysis.results import result_paths
+    from wicca_tpu_torch.harness import ClassifierProcessor
+
+    reset_all_launches()
+    cuda = dev.type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA]) if cuda else contextlib.nullcontext() as prof:
+        t0 = time.perf_counter()
+        proc = ClassifierProcessor(src, transform_depth=HARNESS_DEPTHS, results_folder=out, log_info=False,
+                                   device=dev, **kw)
+        res = proc.process_classifiers(classifiers)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if set(res) != set(classifiers):
+        raise AssertionError(f"{what}: classifiers {sorted(set(classifiers) - set(res))} gave no result")
+    for depth in HARNESS_DEPTHS:
+        for name in classifiers:
+            paths = result_paths(out, depth, name)
+            if not (paths.regular.is_file() and paths.summary.is_file()):
+                raise AssertionError(f"{what}: {name} wrote no CSVs at depth {depth} (disabled)")
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in (prof.events() if cuda else [])
+                       if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")))
+    busy_us, end = 0.0, -math.inf
+    for s, e in intervals:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    metrics = {d: json.loads((out / f"depth-{d}" / "run-metrics.json").read_text()) for d in HARNESS_DEPTHS}
+    row = {"run": what, "launches": launches, "wall_s": wall, "kernel_busy_ms": busy_us / 1e3,
+           "idle_share": 1 - busy_us / 1e6 / wall, "metrics": metrics, "results": res}
+    print(f"phase 3j [{card}]: {what}: {wall:.2f} s, launches {json.dumps(launches)}, device busy "
+          f"{busy_us / 1e3:.3f} ms (idle share {row['idle_share']:.5f}); per depth "
+          + "; ".join(f"{d}: {m['megapixels_per_s']} MP/s over {m['wall_s']} s, stages "
+                      f"{json.dumps(m['stage_seconds'])}" for d, m in metrics.items()), flush=True)
+    return row
+
+
+def forward_flops(model, shape, dev) -> int:
+    """Operations of one image's forward, counted from the layer shapes:
+    2 x the multiply-adds of every convolution and dense layer and of the
+    attention products (q k^T and the weighted sum of v)."""
+    from wicca_tpu_torch.models import nets
+
+    total = [0]
+
+    def conv(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    def dense(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1]
+
+    def attention(mod, inp, out):
+        b, t, dim = inp[0].shape
+        total[0] += 2 * 2 * b * t * t * dim
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, nets.Conv) else dense if isinstance(m, nets.Dense)
+                                     else attention)
+             for m in model.modules() if isinstance(m, (nets.Conv, nets.Dense, nets.MultiHeadDotProductAttention))]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros((1, 3, *shape), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def logits_check(name: str, clf: dict, batch: np.ndarray, dev) -> dict:
+    """The zoo model's float32 twin on the card (TF32 off for cuDNN and
+    matmuls during the comparison, restored after) against the same module
+    on the CPU, and its bfloat16 logits on the card against the CPU's
+    float32, on one preprocessed NHWC batch."""
+    from wicca_tpu_torch.config.constants import MODEL
+    from wicca_tpu_torch.models.registry import build
+
+    zoo = clf[MODEL].module
+    state = {k: v.detach().cpu() for k, v in zoo.state_dict().items()}
+    cpu = build(name, MODEL_SHAPE, dtype=torch.float32).eval()
+    cpu.load_state_dict(state, strict=True)
+    card = build(name, MODEL_SHAPE, dtype=torch.float32).eval()
+    card.load_state_dict(state, strict=True)
+    card = card.to(dev)
+    x = torch.from_numpy(np.ascontiguousarray(batch)).permute(0, 3, 1, 2)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = cpu(x).numpy()
+            got = card(x.to(dev)).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    bf16 = clf[MODEL](batch)
+    scale = float(np.abs(want).max())
+    f32_err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or f32_err > F32_TOL * scale:
+        raise AssertionError(f"{name}: float32 logits on the card differ from the CPU's by {f32_err} "
+                             f"(largest |logit| {scale}, tolerance {F32_TOL} of it)")
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * BF16_TOL * scale
+    if not np.isfinite(bf16).all() or (bf16.argmax(-1)[clear] != want.argmax(-1)[clear]).any():
+        raise AssertionError(f"{name}: bfloat16 top-1 differs from float32 where its margin is clear: "
+                             f"{bf16.argmax(-1)} vs {want.argmax(-1)} (clear {clear})")
+    if not (got.argmax(-1) == want.argmax(-1)).all():
+        raise AssertionError(f"{name}: float32 top-1 on the card differs from the CPU's")
+    del card
+    return {"f32_max_abs_err": f32_err, "logit_scale": scale, "bf16_max_abs_err": float(np.abs(bf16 - want).max()),
+            "bf16_top1_checked": int(clear.sum()),
+            "bf16_top1_equal_all": bool((bf16.argmax(-1) == want.argmax(-1)).all())}
+
+
+def model_times(name: str, clf: dict, batch: np.ndarray, dev, reps: int) -> dict:
+    """The zoo model's forward at the harness's batch (CUDA events, median
+    of ``reps``; on a device-resident NCHW batch) and its classifier call
+    (numpy in, numpy out, the copies included), with operations counted
+    from the layer shapes."""
+    from wicca_tpu_torch.config.constants import MODEL
+
+    module = clf[MODEL].module
+    x = torch.from_numpy(np.ascontiguousarray(batch)).to(dev).permute(0, 3, 1, 2)
+    flops = forward_flops(module, MODEL_SHAPE, dev)
+
+    def fwd():
+        with torch.inference_mode():
+            module(x)
+
+    ms = time_ms(fwd, reps, warmup=3)
+    call_ms = time_ms(lambda: clf[MODEL](batch), reps, warmup=1)
+    n = len(batch)
+    return {"batch": n, "gflop_per_image": flops / 1e9, "forward_ms": ms, "call_ms": call_ms,
+            "images_per_s": n / call_ms * 1e3, "forward_images_per_s": n / ms * 1e3,
+            "tflop_per_s": flops * n / ms / 1e9}
+
+
+def phase_harness(src, frames, card: str, dev, reps: int) -> dict:
+    """Phase 3j, each check fatal: the port's harness on phase 3i's folder
+    (``FOLDER``: four 3x8704x6144 frames, one 3x4000x6000, one grayscale
+    2048x2731 read as RGB), ``transform_depth=(3, 5)``, the icon route forced
+    to the device (``WICCA_TPU_ICON_PATH=device``):
+    1. ``load_models`` of ``ZOO`` at 224x224 on the card: none None, every
+       parameter on the card;
+    2. a deterministic numpy classifier's run on the card and with
+       ``device='cpu'`` (K1's plain twin): the same CSV bytes, K1 launched as
+       the bucket groups and stack chunks say; the icons of every frame at
+       both depths equal ``icon_host``'s bit for bit;
+    3. the zoo run: every classifier writes both CSVs at every depth, K1
+       launched as in 2; device idle share over the run;
+    4. per model, on one 12-image batch (the six frames and their depth-3
+       icons, resized and preprocessed as the harness does): the card's
+       float32 logits (TF32 off) against the same module on the CPU within
+       F32_TOL, the zoo's bfloat16 top-1 where the float32 margin is clear;
+       forward time at the harness's batch, images/s, TFLOP/s;
+    5. ``compare='reconstruction'`` with MobileNetV2, Haar ``QuantSpec(1.0)``
+       (K2/K3 once per frame per depth-3 roundtrip, twice at depth 5),
+       ``legall5.3`` + ``rct`` (K6/K7 once per level; the roundtrip is exact,
+       so every image's best class agrees) and ``bior4.4`` + ``ict`` at
+       ``QuantSpec(1.0)`` (K8/K9 once per level)."""
+    import tempfile
+    from pathlib import Path
+
+    from wicca_tpu_torch.config.constants import MODEL, PRE_INP, SHAPE, SIM_BEST_CLASS
+    from wicca_tpu_torch.core.icon_host import icon_host
+    from wicca_tpu_torch.core.quant import QuantSpec
+    from wicca_tpu_torch.harness import processor
+    from wicca_tpu_torch.models import load_models
+
+    n = len(frames)
+    os.environ["WICCA_TPU_ICON_PATH"] = "device"
+    out: dict = {"models": {}}
+    try:
+        with tempfile.TemporaryDirectory(prefix="wicca_harness_") as tmp:
+            tmp = Path(tmp)
+            # 1. the zoo on the card
+            t0 = time.perf_counter()
+            zoo = load_models({name: (name, {"shape": MODEL_SHAPE}) for name in ZOO}, device=dev)
+            out["load_s"] = time.perf_counter() - t0
+            for name, clf in zoo.items():
+                if clf is None:
+                    raise AssertionError(f"load_models gave None for {name}")
+                where = {p.device.type for p in clf[MODEL].module.parameters()}
+                if where != {dev.type}:
+                    raise AssertionError(f"{name}: parameters on {where}, not {dev.type}")
+            print(f"phase 3j [{card}]: load_models of {len(zoo)} models at {MODEL_SHAPE} on {dev.type} in "
+                  f"{out['load_s']:.1f} s", flush=True)
+            want_k1 = ({"icon": sum(icon_launches_expected(frames, d) for d in HARNESS_DEPTHS)}
+                       if dev.type == "cuda" else {})
+
+            # 2. deterministic classifier: the card's CSVs equal the CPU's; icons equal icon_host's
+            det = {"det": deterministic_classifier()}
+            row = harness_run(card, dev, "deterministic classifier", src, tmp / "det_card", det)
+            if row["launches"] != want_k1:
+                raise AssertionError(f"deterministic run launched {row['launches']}, expected {want_k1}")
+            out["deterministic"] = {k: row[k] for k in ("launches", "wall_s", "idle_share")}
+            cpu_row = harness_run(card, torch.device("cpu"), "deterministic classifier, device='cpu'", src,
+                                  tmp / "det_cpu", det)
+            if cpu_row["launches"]:
+                raise AssertionError(f"the CPU run launched {cpu_row['launches']}")
+            for d in HARNESS_DEPTHS:
+                for f in (f"det-depth-{d}.csv", f"det-summary-depth-{d}.csv"):
+                    if (tmp / "det_card" / f"depth-{d}" / f).read_bytes() != (
+                            tmp / "det_cpu" / f"depth-{d}" / f).read_bytes():
+                        raise AssertionError(f"{f}: the card's CSV differs from the CPU run's")
+            images = [np.ascontiguousarray(np.moveaxis(f, 0, -1)) for f in frames]
+            for d in HARNESS_DEPTHS:
+                icons = processor._compute_icons_batched(images, d, dev)
+                for i, (icon, f) in enumerate(zip(icons, frames)):
+                    if not np.array_equal(icon, np.moveaxis(icon_host(f, d), 0, -1)):
+                        raise AssertionError(f"frame {i} depth {d}: K1's icon differs from icon_host's")
+            print(f"phase 3j [{card}]: deterministic classifier: CSVs of the card and the CPU run equal byte for "
+                  f"byte; K1 icons of {n} frames at depths {HARNESS_DEPTHS} equal icon_host's", flush=True)
+
+            # 3. the zoo run
+            row = harness_run(card, dev, f"zoo {','.join(ZOO)}", src, tmp / "zoo", zoo)
+            if row["launches"] != want_k1:
+                raise AssertionError(f"zoo run launched {row['launches']}, expected {want_k1}")
+            out["zoo"] = {k: row[k] for k in ("launches", "wall_s", "kernel_busy_ms", "idle_share", "metrics")}
+            out["zoo"]["mean_best_class"] = {k: float(v[1].loc["mean", SIM_BEST_CLASS]) for k, v in
+                                             row["results"].items()}
+
+            # 4. per model: logits against the CPU, times
+            import cv2
+
+            icons3 = processor._compute_icons_batched(images, 3, dev)
+            for name, clf in zoo.items():
+                stack = np.stack([cv2.resize(im, clf[SHAPE], interpolation=3) for im in images + icons3])
+                batch = np.asarray(clf[PRE_INP](stack), dtype=np.float32)
+                check = logits_check(name, clf, batch, dev)
+                times = model_times(name, clf, batch[:n], dev, reps) if dev.type == "cuda" else {}
+                out["models"][name] = {**check, **times}
+                print(f"phase 3j [{card}]: {name}: {json.dumps(out['models'][name])}", flush=True)
+
+            # 5. reconstruction runs with MobileNetV2
+            mnv2 = {"MobileNetV2": zoo["MobileNetV2"]}
+            for what, kw, want in (
+                ("reconstruction haar", dict(compare="reconstruction", codec_spec=QuantSpec(base_step=1.0)),
+                 {"dwt_multilevel_quant": 3 * n, "idwt_multilevel_dequant": 3 * n}),
+                ("reconstruction legall5.3+rct", dict(compare="reconstruction", codec_wavelet="legall5.3",
+                                                      codec_color="rct"),
+                 {"dwt53_multilevel": sum(HARNESS_DEPTHS) * n, "idwt53_multilevel": sum(HARNESS_DEPTHS) * n}),
+                ("reconstruction bior4.4+ict", dict(compare="reconstruction", codec_spec=QuantSpec(base_step=1.0),
+                                                   codec_wavelet="bior4.4", codec_color="ict"),
+                 {"dwt97_multilevel_quant": sum(HARNESS_DEPTHS) * n,
+                  "idwt97_multilevel_dequant": sum(HARNESS_DEPTHS) * n}),
+            ):
+                row = harness_run(card, dev, what, src, tmp / what.replace(" ", "_"), mnv2, **kw)
+                if row["launches"] != (want if dev.type == "cuda" else {}):
+                    raise AssertionError(f"{what}: launches {row['launches']}, expected {want}")
+                best = float(row["results"]["MobileNetV2"][1].loc["mean", SIM_BEST_CLASS])
+                if "legall" in what and best != 100.0:
+                    raise AssertionError(f"{what}: the exact roundtrip's best class agrees in {best}% only")
+                out[what] = {k: row[k] for k in ("launches", "wall_s", "kernel_busy_ms", "idle_share")}
+                out[what]["mean_best_class"] = best
+            del zoo
+    finally:
+        del os.environ["WICCA_TPU_ICON_PATH"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1521,6 +1854,22 @@ def phase_times(x, launches, max_abs_err, reps, rate):
     return rows, kernels, e2e
 
 
+def print_folder(folder: dict, card: str, cpu: str, t0: float) -> None:
+    st = folder["stages"]
+    print(f"phase 3i [{card}; host {cpu}]: one 3x{H}x{W} frame, encode: load {st['load_s']:.3f} s, H2D "
+          f"{st['h2d_s']:.4f} s, device encode {st['device_encode_s']:.4f} s, D2H {st['d2h_s']:.4f} s, serialize "
+          f"{st['serialize_s']:.3f} s, file write {st['file_write_s']:.3f} s (host encode "
+          f"{st['host_encode_s']:.3f} s); decode: read {st['read_s']:.3f} s, deserialize "
+          f"{st['deserialize_s']:.3f} s, H2D {st['decode_h2d_s']:.4f} s, "
+          f"device decode {st['device_decode_s']:.4f} s, D2H {st['decode_d2h_s']:.4f} s, PNG write "
+          f"{st['png_write_s']:.3f} s ({st['png_write_all_cores_s']:.3f} s on all cores) (host decode "
+          f"{st['host_decode_s']:.3f} s)", flush=True)
+    print(f"phase 3i [{card}]: pinned link: H2D {st['h2d_GBps']:.2f} GB/s ({st['frame_bytes']} bytes), D2H "
+          f"{st['d2h_GBps']:.2f} GB/s ({st['stream_bytes']} bytes), the cost model's link EMA "
+          f"{folder['rates']['link_Bps'] / 1e9:.2f} GB/s; rates {json.dumps(folder['rates'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def host_cpu() -> str:
     """The host CPU as ``lscpu`` names it (vendor, model, BIOS model) and
     the cores this process may use."""
@@ -1639,28 +1988,24 @@ def main(argv=None) -> int:
     rows, kernels, e2e = phase_times(x, launches, max_abs_err, args.reps, rate)
     # phase 3i after phase 4's timings: its profiler sessions would cost
     # phase 4's profiler records
-    t0 = time.perf_counter()
-    folder = phase_folder(args.seed, card)
-    st = folder["stages"]
-    print(f"phase 3i [{card}; host {cpu}]: one 3x{H}x{W} frame, encode: load {st['load_s']:.3f} s, H2D "
-          f"{st['h2d_s']:.4f} s, device encode {st['device_encode_s']:.4f} s, D2H {st['d2h_s']:.4f} s, serialize "
-          f"{st['serialize_s']:.3f} s, file write {st['file_write_s']:.3f} s (host encode "
-          f"{st['host_encode_s']:.3f} s); decode: read {st['read_s']:.3f} s, deserialize "
-          f"{st['deserialize_s']:.3f} s, H2D {st['decode_h2d_s']:.4f} s, "
-          f"device decode {st['device_decode_s']:.4f} s, D2H {st['decode_d2h_s']:.4f} s, PNG write "
-          f"{st['png_write_s']:.3f} s ({st['png_write_all_cores_s']:.3f} s on all cores) (host decode "
-          f"{st['host_decode_s']:.3f} s)", flush=True)
-    print(f"phase 3i [{card}]: pinned link: H2D {st['h2d_GBps']:.2f} GB/s ({st['frame_bytes']} bytes), D2H "
-          f"{st['d2h_GBps']:.2f} GB/s ({st['stream_bytes']} bytes), the cost model's link EMA "
-          f"{folder['rates']['link_Bps'] / 1e9:.2f} GB/s; rates {json.dumps(folder['rates'])} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="wicca_folder_") as tmp:
+        t0 = time.perf_counter()
+        folder, frames = phase_folder(Path(tmp), args.seed, card)
+        print_folder(folder, card, cpu, t0)
+        t0 = time.perf_counter()
+        harness = phase_harness(Path(tmp) / "src", frames, card, torch.device("cuda"), args.reps)
+        print(f"phase 3j [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
+        del frames
 
     for r in rows:
         print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc,
-            "folder": folder}
+            "folder": folder, "harness": harness}
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

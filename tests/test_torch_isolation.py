@@ -29,8 +29,8 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "wicca_tpu"
-             or m.startswith("wicca_tpu."))
+bad = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "wicca_tpu")
+             or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "wicca_tpu.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -47,7 +47,12 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
                  "wicca_tpu_torch.codec.transcode", "wicca_tpu_torch.native.rice", "wicca_tpu_torch.codec.batch",
                  "wicca_tpu_torch.codec.host_encode", "wicca_tpu_torch.codec.host_decode",
                  "wicca_tpu_torch.codec.transfer", "wicca_tpu_torch.native.idwt", "wicca_tpu_torch.native.pngw",
-                 "wicca_tpu_torch.data.pngw", "wicca_tpu_torch.data.loader", "wicca_tpu_torch.utils.ema"):
+                 "wicca_tpu_torch.data.pngw", "wicca_tpu_torch.data.loader", "wicca_tpu_torch.utils.ema",
+                 "wicca_tpu_torch.config.constants", "wicca_tpu_torch.config.aliases",
+                 "wicca_tpu_torch.data.normalization", "wicca_tpu_torch.utils.timing", "wicca_tpu_torch.utils.env",
+                 "wicca_tpu_torch.core.icon_host", "wicca_tpu_torch.models.imagenet", "wicca_tpu_torch.models.nets",
+                 "wicca_tpu_torch.models.interop", "wicca_tpu_torch.models.convert", "wicca_tpu_torch.models.registry",
+                 "wicca_tpu_torch.analysis.results", "wicca_tpu_torch.harness.processor"):
         assert name in res["modules"]
 
 
@@ -95,7 +100,8 @@ def test_host_libraries_build_from_the_port_alone(lib, flags, libs, tmp_path, mo
 def test_no_jax_import_lines(path):
     for line in (ROOT / path).read_text().splitlines():
         s = line.strip()
-        assert not s.startswith(("import jax", "from jax")), line
+        assert not s.startswith(("import jax", "from jax", "import flax", "from flax", "import optax",
+                                 "from optax")), line
         assert not (s.startswith(("from wicca_tpu.", "from wicca_tpu ", "import wicca_tpu"))
                     and not s.startswith(("from wicca_tpu_torch", "import wicca_tpu_torch"))), line
 
@@ -296,3 +302,35 @@ def test_folder_pipeline_on_the_card(tmp_path):
         assert dwt_cuda.LAUNCHES["idwt_multilevel_dequant"] == (3 if path == "device" else 0)
     for name in (f"im{i}.png" for i in range(3)):
         assert (tmp_path / "png_host" / name).read_bytes() == (tmp_path / "png_device" / name).read_bytes()
+
+
+@pytest.mark.cuda
+def test_harness_on_the_card(tmp_path, monkeypatch):
+    """On a card: the harness's icons go through K1 (one launch per bucket
+    group and depth; a ``device='cpu'`` run launches none) and a zoo model on
+    the card writes every CSV (``python3 chip_smoke.py`` phase 3j runs the
+    full-size folder and zoo)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    import cv2
+
+    from wicca_tpu_torch.config.constants import MODEL
+    from wicca_tpu_torch.harness import ClassifierProcessor
+    from wicca_tpu_torch.models import load_models
+
+    (tmp_path / "src").mkdir()
+    rng = np.random.default_rng(3)
+    for i in range(3):
+        cv2.imwrite(str(tmp_path / "src" / f"im{i}.png"), rng.integers(0, 256, (96, 160, 3), dtype=np.uint8))
+    zoo = {d: load_models({"m": ("MobileNetV2", {"shape": (64, 64)})}, device=d) for d in ("cuda", "cpu")}
+    zoo["cpu"]["m"][MODEL].module.load_state_dict(zoo["cuda"]["m"][MODEL].module.state_dict())
+    monkeypatch.setenv("WICCA_TPU_ICON_PATH", "device")  # frames this small would take the host route
+    assert next(zoo["cuda"]["m"][MODEL].module.parameters()).device.type == "cuda"
+    for d in ("cuda", "cpu"):
+        dwt_cuda.reset_launches()
+        ClassifierProcessor(tmp_path / "src", transform_depth=(1, 3), results_folder=tmp_path / d, log_info=False,
+                            device=d).process_classifiers(zoo[d])
+        assert dwt_cuda.LAUNCHES["icon"] == (2 if d == "cuda" else 0)
+    for depth in (1, 3):
+        name = f"depth-{depth}/m-depth-{depth}.csv"
+        assert (tmp_path / "cuda" / name).is_file() and (tmp_path / "cpu" / name).is_file()

@@ -11,10 +11,15 @@ entropy coders (``native/``, host C++ built with g++ at first use),
 transcoding, SSIM/MS-SSIM and rate control, and the folder pipeline
 (``encode_folder``/``decode_folder``: image IO, host-or-device routing by a
 measured cost model, the host encode and decode routes on host C++, pinned
-transfers and a strip-parallel PNG writer) (:mod:`wicca_tpu_torch.codec`).
-The device work runs in hand-written CUDA kernels (``csrc/``, K1-K9), built
-with nvcc at first use; every kernel has a plain PyTorch twin that the CPU
-runs.
+transfers and a strip-parallel PNG writer) (:mod:`wicca_tpu_torch.codec`);
+and the classification harness with its model zoo
+(:mod:`wicca_tpu_torch.harness`, :mod:`wicca_tpu_torch.models`: source
+images against their icons or codec reconstructions through CNN and ViT
+classifiers, into the reference's result CSVs). The wavelet work runs in
+hand-written CUDA kernels (``csrc/``, K1-K9), built with nvcc at first use;
+every kernel has a plain PyTorch twin that the CPU runs. The classifiers'
+convolutions and matmuls are PyTorch's, as the JAX package leaves them to
+XLA.
 
 Device rule: a tensor input runs where it lies; a numpy input goes to
 ``device="cuda"`` unless the caller passes ``device="cpu"``; with no card
