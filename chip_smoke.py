@@ -55,7 +55,7 @@ Phases, each fatal on failure:
       uint8 frame and applies the ICT, K9's last launch applies the inverse
       ICT and emits uint8;
    then, after phase 3's counters are read (their launches count nowhere;
-   i and j run after phase 4's timings, whose profiler records they would
+   i-l run after phase 4's timings, whose profiler records they would
    thin):
    e. the ``.wct`` container: Haar ``QuantSpec(1.0)``, ``legall5.3`` +
       ``rct`` and ``bior4.4`` + ``ict`` (``chroma_gain=2``) encoded on the
@@ -99,7 +99,7 @@ Phases, each fatal on failure:
       forced to the device) on phase i's folder, ``transform_depth=(3, 5)``,
       each run under the profiler with its own launch counters: the zoo
       (SimpleCNN, MobileNetV2, ResNet50, EfficientNetB0, VGG16, DenseNet121,
-      ViTS16 at 224x224, bfloat16) loaded on the card; a deterministic numpy
+      NASNetMobile, ViTS16 at 224x224, bfloat16) loaded on the card; a deterministic numpy
       classifier's CSVs on the card equal a ``device='cpu'`` run's byte for
       byte, K1 launched once per bucket group and stack chunk, the K1 icons
       equal ``icon_host``'s; the zoo run writes every classifier's CSVs at
@@ -113,6 +113,22 @@ Phases, each fatal on failure:
       ``bior4.4`` + ``ict`` (K8/K9). Printed:
       each run's MP/s and stage seconds per depth, launches, device idle
       share;
+   k. icon fine-tuning: ``finetune_on_icons`` with MobileNetV2 (width 1.0,
+      224x224, depth 3, batch 32, 3 epochs, Adam 1e-3) on a seeded
+      ImageFolder of 64 photograph-like 2048x2048 frames (dark and bright),
+      the icon route forced to the card, under the profiler with its own
+      launch counters: K1 once per batch, finite losses that fall from the
+      first epoch to the last, the last checkpoint restored bit for bit;
+      one float32 step on the card against the CPU's (BatchNorm statistics
+      included, within the tolerance stated at ``GRAD_RTOL``). Printed:
+      losses, s/step, the step's parts, images/s, peak memory, idle share;
+   l. ``entry()`` on the card ((2, 1000) logits; its model at float32
+      within 1e-4 of the CPU's), then ``python -m wicca_tpu_torch`` in
+      processes of their own on phase i's 3x4000x6000 frame: ``encode`` and
+      ``decode`` for Haar, ``legall5.3`` + ``rct`` and ``bior4.4`` + ``ict``
+      (bytes and pixels equal to the in-process API on the card),
+      ``icon``, ``info``, and ``analyze --models SimpleCNN NASNetMobile`` on
+      two frames; each command's launches and wall time;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -1268,7 +1284,7 @@ def phase_folder(tmp, seed: int, card: str, dev=torch.device("cuda")) -> tuple[d
 # (after phase 3's counters are read; each harness run reads its own)
 # ---------------------------------------------------------------------------
 
-ZOO = ("SimpleCNN", "MobileNetV2", "ResNet50", "EfficientNetB0", "VGG16", "DenseNet121", "ViTS16")
+ZOO = ("SimpleCNN", "MobileNetV2", "ResNet50", "EfficientNetB0", "VGG16", "DenseNet121", "NASNetMobile", "ViTS16")
 HARNESS_DEPTHS = (3, 5)
 MODEL_SHAPE = (224, 224)
 # stated tolerances, relative to the largest |logit| of the float32 model on
@@ -1310,6 +1326,21 @@ def icon_launches_expected(frames, depth: int) -> int:
     return sum(-(-n // max(1, processor._MAX_STACK_BYTES // int(np.prod(s)))) for s, n in groups.items())
 
 
+def kernel_busy_us(prof) -> float:
+    """The device's busy time in a profile: the union of its kernel
+    intervals over all streams (copies and memsets left out)."""
+    from torch.autograd import DeviceType
+
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")))
+    busy_us, end = 0.0, -math.inf
+    for s, e in intervals:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return busy_us
+
+
 def harness_run(card: str, dev, what: str, src, out, classifiers, **kw) -> dict:
     """One ``process_classifiers`` run on ``dev`` over ``src`` with the launch
     counters set to 0 just before and read just after, under the profiler on
@@ -1317,7 +1348,6 @@ def harness_run(card: str, dev, what: str, src, out, classifiers, **kw) -> dict:
     (a disabled classifier writes none). Returns its launches, run metrics
     per depth, wall time and the device's busy time (the union of kernel
     intervals over all streams) and idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from wicca_tpu_torch.analysis.results import result_paths
@@ -1341,13 +1371,7 @@ def harness_run(card: str, dev, what: str, src, out, classifiers, **kw) -> dict:
             paths = result_paths(out, depth, name)
             if not (paths.regular.is_file() and paths.summary.is_file()):
                 raise AssertionError(f"{what}: {name} wrote no CSVs at depth {depth} (disabled)")
-    intervals = sorted((e.time_range.start, e.time_range.end) for e in (prof.events() if cuda else [])
-                       if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")))
-    busy_us, end = 0.0, -math.inf
-    for s, e in intervals:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
+    busy_us = kernel_busy_us(prof) if cuda else 0.0
     metrics = {d: json.loads((out / f"depth-{d}" / "run-metrics.json").read_text()) for d in HARNESS_DEPTHS}
     row = {"run": what, "launches": launches, "wall_s": wall, "kernel_busy_ms": busy_us / 1e3,
            "idle_share": 1 - busy_us / 1e6 / wall, "metrics": metrics, "results": res}
@@ -1854,6 +1878,350 @@ def phase_times(x, launches, max_abs_err, reps, rate):
     return rows, kernels, e2e
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: icon fine-tuning (after phase 3's counters are read; the training
+# run reads its own)
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPE = (3, 2048, 2048)
+TRAIN_FRAMES = 64  # 32 dark, 32 bright
+TRAIN = dict(architecture="MobileNetV2", input_size=224, depth=3, batch_size=32, learning_rate=1e-3, epochs=3)
+# stated tolerance of one float32 step on the card (TF32 off) against the
+# CPU's. Gradients: each tensor's within GRAD_RTOL of its largest |gradient|
+# (float32 sums of up to 32 x 112 x 112 terms in other orders and other
+# convolution algorithms; where a tensor's gradient is small against its
+# terms they cancel, and the first chip run of this check measured 2.4e-3
+# there, past the 1e-4 first stated). The stepped state: within STEP_TOL
+# (about two float32 steps at |p| < 8) wherever the CPU's gradient exceeds
+# both 100 x its tensor's largest gradient difference and 100 x Adam's eps,
+# since there the first update lr * g / (|g| + eps) moves by under 1e-7;
+# within 2 lr + STEP_TOL everywhere, since a gradient within float32 noise
+# of 0 or of eps lands anywhere in [-lr, lr]
+GRAD_RTOL, STEP_TOL = 1e-2, 2e-6
+STEP_BATCH = (32, 224)  # the step check's batch and input size
+
+
+def write_train_folder(root, seed: int) -> None:
+    """A seeded two-class ImageFolder of photograph-like 2048x2048 frames as
+    PNG: ``dark`` (a third of the content) and ``bright`` (128 + half)."""
+    import concurrent.futures
+
+    from wicca_tpu_torch.data.pngw import write_png
+
+    for cname in ("bright", "dark"):
+        (root / cname).mkdir(parents=True)
+
+    def make(i):
+        x = photo_like(TRAIN_SHAPE, seed + 100 + i)
+        dark = i % 2 == 1
+        write_png(str(root / ("dark" if dark else "bright") / f"{i:03d}.png"), x // 3 if dark else x // 2 + 128)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(make, range(TRAIN_FRAMES)))
+
+
+def train_step_check(dev, seed: int) -> dict:
+    """One float32 ``train_step`` of MobileNetV2 (2 classes, ``STEP_BATCH``)
+    on the card and on the CPU from the same weights and batch (TF32 off):
+    the loss within 1e-5, the gradients within GRAD_RTOL, every tensor of
+    the stepped state, BatchNorm statistics included, within STEP_TOL where
+    the update is sure (see GRAD_RTOL)."""
+    import copy
+
+    from wicca_tpu_torch.harness import train as T
+    from wicca_tpu_torch.models import nets
+
+    cpu = nets.init_weights(nets.MobileNetV2(num_classes=2, dtype=torch.float32), torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).to(dev)
+    before = [v.clone() for v in cpu.state_dict().values()]
+    rng = np.random.default_rng(seed)
+    bs, size = STEP_BATCH
+    xb = torch.from_numpy(rng.uniform(-1, 1, (bs, 3, size, size)).astype(np.float32))
+    yb = torch.from_numpy(rng.integers(0, 2, bs))
+    losses, grads, states = [], [], []
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for model, d in ((cpu, torch.device("cpu")), (card, dev)):
+            state = T.trainable(model)
+            losses.append(float(T.train_step(model, T.OptaxAdam(state, 1e-3), xb.to(d), yb.to(d))))
+            grads.append([t.grad.cpu() for t in state])
+            states.append([t.detach().cpu() for t in state])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    want, got = losses
+    if not abs(got - want) <= 1e-5 * abs(want) + 2e-7:
+        raise AssertionError(f"train_step: the card's loss {got} differs from the CPU's {want}")
+    worst = worst_sure = moved = 0.0
+    sure_n = n = 0
+    rel = {}
+    for name, gc, gg, pc, pg, p0 in zip(cpu.state_dict(), *grads, *states, before):
+        gmax, gdiff = float(gc.abs().max()), float((gg - gc).abs().max())
+        rel[name] = gdiff / gmax if gmax else float(gg.abs().max())
+        sure = gc.abs() >= max(100 * gdiff, 100 * 1e-8)
+        err = (pg - pc).abs()
+        worst = max(worst, float(err.max()))
+        worst_sure = max(worst_sure, float(err[sure].max()) if sure.any() else 0.0)
+        sure_n += int(sure.sum())
+        n += err.numel()
+        moved = max(moved, float((pc - p0).abs().max()))
+    grad_err = max(rel.values())
+    if grad_err > GRAD_RTOL or worst_sure > STEP_TOL or worst > 2e-3 + STEP_TOL or moved < 5e-4:
+        raise AssertionError(f"train_step: the card differs from the CPU: gradients by {grad_err} of their "
+                             f"largest, the state by {worst_sure} where the update is sure ({sure_n} of "
+                             f"{n}), {worst} anywhere; largest move {moved}")
+    return {"loss": got, "cpu_loss": want, "grad_rel_err": grad_err, "grad_rel_err_at": max(rel, key=rel.get),
+            "grad_rel_err_median": statistics.median(rel.values()), "max_abs_err_sure": worst_sure,
+            "max_abs_err": worst, "elements_sure": sure_n, "elements": n, "largest_move": moved}
+
+
+def step_parts_ms(state: dict, dev, reps: int) -> dict:
+    """The trained MobileNetV2 (bf16, as trained) at the training batch on
+    the card: the forward with the loss, the backward and ``OptaxAdam``'s
+    step, each by CUDA events (median of ``reps``)."""
+    import torch.nn.functional as F
+
+    from wicca_tpu_torch.harness import train as T
+    from wicca_tpu_torch.models import nets
+
+    model = nets.MobileNetV2(num_classes=2)
+    model.load_state_dict({k: v.cpu() for k, v in state.items()})
+    model = model.to(dev)
+    opt = T.OptaxAdam(T.trainable(model), TRAIN["learning_rate"])
+    bs, size = TRAIN["batch_size"], TRAIN["input_size"]
+    xb = torch.rand((bs, 3, size, size), device=dev) * 2 - 1
+    yb = torch.arange(bs, device=dev) % 2
+    holder = {}
+
+    def fwd():
+        holder["loss"] = F.cross_entropy(model(xb).float(), yb)
+
+    def bwd():
+        opt.zero_grad(set_to_none=True)
+        fwd()
+        holder["loss"].backward()
+
+    out = {"forward_ms": time_ms(fwd, reps), "forward_backward_ms": time_ms(bwd, reps)}
+    out["optimizer_ms"] = time_ms(opt.step, reps)
+    return out
+
+
+def phase_train(tmp, seed: int, card: str, dev) -> dict:
+    """Phase 3k, each check fatal: ``finetune_on_icons`` with ``TRAIN`` on
+    ``write_train_folder``'s folder, the icon route forced to the card
+    (``WICCA_TPU_ICON_PATH=device``), under the profiler, with the launch
+    counters set to 0 just before and read just after: K1 launched once per
+    batch (one bucket group, one stack chunk), the losses finite and the
+    last epoch's below the first's, the checkpoint of the last epoch
+    restored equal to the trained state bit for bit; then one float32 step
+    on the card against the CPU's (:func:`train_step_check`). Returns the
+    losses, s/step (median after the first), images/s, peak device memory
+    and the device's idle share over the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wicca_tpu_torch.harness import train as T
+
+    t0 = time.perf_counter()
+    write_train_folder(tmp / "train", seed)
+    out: dict = {"write_s": time.perf_counter() - t0}
+    steps = TRAIN_FRAMES // TRAIN["batch_size"] * TRAIN["epochs"]
+    frames = [np.empty(TRAIN_SHAPE, np.uint8)] * TRAIN["batch_size"]
+    want = {"icon": steps * icon_launches_expected(frames, TRAIN["depth"])} if dev.type == "cuda" else {}
+    step_s: list = []
+    real_step = T.train_step
+
+    def timed_step(*args):
+        t = time.perf_counter()
+        loss = real_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return loss
+
+    os.environ["WICCA_TPU_ICON_PATH"] = "device"
+    T.train_step = timed_step
+    try:
+        cfg = T.TrainConfig(**TRAIN, seed=seed, checkpoint_dir=str(tmp / "ckpt"))
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, info = T.finetune_on_icons(tmp / "train", cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        T.train_step = real_step
+        del os.environ["WICCA_TPU_ICON_PATH"]
+    losses = [h["loss"] for h in info["history"]]
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, expected {want}")
+    if len(step_s) != steps or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: {len(step_s)} steps of {steps}, epoch losses {losses}")
+    back = T.restore_checkpoint(tmp / "ckpt", {"params": state})
+    if back["step"] != steps or any(not torch.equal(back["params"][k], v.cpu()) for k, v in state.items()):
+        raise AssertionError("the restored checkpoint differs from the trained state")
+    busy_us = kernel_busy_us(prof)
+    out["step_parts"] = step_parts_ms(state, dev, 10) if dev.type == "cuda" else {}
+    out.update(losses=losses, epoch_s=[h["s"] for h in info["history"]], steps=steps, launches=launches,
+               wall_s=wall, first_step_s=step_s[0], step_s=statistics.median(step_s[1:]),
+               images_per_s=TRAIN["batch_size"] / statistics.median(step_s[1:]),
+               peak_GB=torch.cuda.max_memory_allocated() / 1e9, kernel_busy_ms=busy_us / 1e3,
+               idle_share=1 - busy_us / 1e6 / wall)
+    print(f"phase 3k [{card}]: finetune_on_icons {json.dumps(TRAIN)} on {TRAIN_FRAMES} frames "
+          f"{TRAIN_SHAPE}: epoch losses {losses}; {steps} steps, s/step {out['step_s']:.4f} (first "
+          f"{out['first_step_s']:.3f}), {out['images_per_s']:.1f} images/s, epochs {out['epoch_s']} s, peak "
+          f"{out['peak_GB']:.2f} GB, launches {json.dumps(launches)}, device busy {out['kernel_busy_ms']:.1f} ms "
+          f"of {wall:.2f} s (idle share {out['idle_share']:.5f}); checkpoint restored bit for bit; one step's "
+          f"parts {json.dumps(out['step_parts'])}", flush=True)
+    out["step_check"] = train_step_check(dev, seed)
+    print(f"phase 3k [{card}]: one float32 step on the card equals the CPU's (gradients within {GRAD_RTOL} of "
+          f"their largest, the state within {STEP_TOL} where the update is sure): "
+          f"{json.dumps(out['step_check'])}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3l: the flagship forward and the command line (after phase 3's
+# counters are read; each command counts its own launches)
+# ---------------------------------------------------------------------------
+
+# ``python -m wicca_tpu_torch <args>`` (runpy runs the package's __main__ as
+# -m does), then the process's launch counts on stderr
+CLI_RUNNER = r"""
+import json, runpy, sys
+sys.argv = ["wicca_tpu_torch", *sys.argv[1:]]
+rc = 0
+try:
+    runpy.run_module("wicca_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
+counts = {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES}
+print("LAUNCHES " + json.dumps({k: v for k, v in counts.items() if v}), file=sys.stderr)
+sys.exit(rc)
+"""
+CLI_CODECS = (("haar", []), ("legall5.3+rct", ["--wavelet", "legall5.3", "--color", "rct"]),
+              ("bior4.4+ict", ["--wavelet", "bior4.4", "--color", "ict"]))
+
+
+def cli(card: str, dev, what: str, *args) -> dict:
+    """One command through ``CLI_RUNNER`` on ``dev`` (``--device``) in a
+    process of its own; fails unless it exits 0. Returns its stdout,
+    launches and wall time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", CLI_RUNNER, "--device", dev.type, *map(str, args)], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"python -m wicca_tpu_torch {' '.join(map(str, args))}: exit {p.returncode}\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    line = [ln for ln in p.stderr.splitlines() if ln.startswith("LAUNCHES ")][-1]
+    row = {"command": what, "launches": json.loads(line[len("LAUNCHES "):]), "wall_s": wall, "stdout": p.stdout}
+    print(f"phase 3l [{card}]: python -m wicca_tpu_torch {what}: {wall:.2f} s, launches "
+          f"{json.dumps(row['launches'])}; {p.stdout.strip().splitlines()[-1][:200] if p.stdout.strip() else ''}",
+          flush=True)
+    return row
+
+
+def entry_check(dev, seed: int, reps: int) -> dict:
+    """``entry()`` on the card: (2, 1000) finite float32 logits of its
+    example batch; its MobileNetV2 as float32 (TF32 off) on a seeded batch
+    within F32_TOL of the largest |logit| of the same module on the CPU;
+    the forward's time (CUDA events, median of ``reps``)."""
+    from wicca_tpu_torch.entry import entry, preprocess
+    from wicca_tpu_torch.models import nets
+
+    forward, (model, example) = entry(dev)
+    logits = forward(model, example)
+    if logits.shape != (2, 1000) or logits.dtype != torch.float32 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"entry(): logits {logits.dtype}{tuple(logits.shape)}")
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    twins = []
+    for d in (torch.device("cpu"), dev):
+        twin = nets.MobileNetV2(dtype=torch.float32).eval()
+        twin.load_state_dict(state, strict=True)
+        twins.append(twin.to(d))
+    x = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (2, 3, 256, 256), dtype=np.uint8))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = twins[0](preprocess(x)).numpy()
+            got = twins[1](preprocess(x.to(dev))).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if err > F32_TOL * scale:
+        raise AssertionError(f"entry(): float32 logits on the card differ from the CPU's by {err} (scale {scale})")
+    xd = x.to(dev)
+    return {"f32_max_abs_err": err, "logit_scale": scale, "forward_ms": time_ms(lambda: forward(model, xd), reps)}
+
+
+def phase_cli(tmp, src, frames, card: str, dev, seed: int, reps: int) -> dict:
+    """Phase 3l, each check fatal: :func:`entry_check`; then ``python -m
+    wicca_tpu_torch`` in processes of their own on phase 3i's 3x4000x6000
+    frame: ``encode`` (depth 5) and ``decode`` for Haar, ``legall5.3`` +
+    ``rct`` and ``bior4.4`` + ``ict``, each ``.wct`` equal byte for byte to
+    ``save(encode(frame))`` in this process on the card and each decode's
+    PNG equal to ``decode(load(...), emit_u8=True)`` here (the lossless one
+    also to the frame); ``icon`` (depth 5) equal to the harness's K1 icon;
+    ``info`` (integrity ok); ``analyze --models SimpleCNN NASNetMobile`` on
+    two frames at depth 3 (every CSV written)."""
+    import shutil
+
+    import cv2
+
+    from wicca_tpu_torch.codec import decode, encode, load, save
+    from wicca_tpu_torch.core.quant import QuantSpec
+    from wicca_tpu_torch.harness.processor import _compute_icon
+
+    out: dict = {"entry": entry_check(dev, seed, reps)}
+    print(f"phase 3l [{card}]: entry(): (2, 1000) logits; float32 on the card within {F32_TOL} of the CPU's: "
+          f"{json.dumps(out['entry'])}", flush=True)
+    name = "frame4.png"
+    frame = frames[4]
+    work = tmp / "cli"
+    work.mkdir()
+    rows = []
+    for tag, flags in CLI_CODECS:
+        wct, png = work / f"{tag}.wct", work / f"{tag}.png"
+        rows.append(cli(card, dev, f"encode {' '.join(flags) or '(haar)'}", "encode", src / name, wct, "--levels",
+                        LEVELS, *flags))
+        kw = dict(zip(flags[::2], flags[1::2]))
+        ref = work / f"{tag}_ref.wct"
+        stream = encode(torch.from_numpy(frame).to(dev), levels=LEVELS, spec=QuantSpec(1.0),
+                        wavelet=kw.get("--wavelet", "haar"), color=kw.get("--color", "none"))
+        save(stream, ref)
+        if wct.read_bytes() != ref.read_bytes():
+            raise AssertionError(f"encode {tag}: the command's .wct differs from the in-process encode's")
+        rows.append(cli(card, dev, f"decode {tag}", "decode", wct, png))
+        want = decode(load(ref, device=dev), emit_u8=True).cpu().numpy()
+        got = read_pngs([png])[0]
+        if not np.array_equal(got, want) or ("legall" in tag and not np.array_equal(got, frame)):
+            raise AssertionError(f"decode {tag}: the command's PNG differs from the in-process decode")
+    rows.append(cli(card, dev, "icon --depth 5", "icon", src / name, work / "icon.png", "--depth", LEVELS))
+    icon = cv2.cvtColor(cv2.imread(str(work / "icon.png")), cv2.COLOR_BGR2RGB)
+    if not np.array_equal(icon, _compute_icon(np.ascontiguousarray(np.moveaxis(frame, 0, -1)), LEVELS, dev)):
+        raise AssertionError("icon: the command's icon differs from the harness's")
+    rows.append(cli(card, dev, "info", "info", work / "haar.wct"))
+    if "integrity: ok" not in rows[-1]["stdout"]:
+        raise AssertionError(f"info: {rows[-1]['stdout']}")
+    two = work / "two"
+    two.mkdir()
+    for f in ("frame4.png", "frame5.png"):
+        shutil.copy(src / f, two / f)
+    rows.append(cli(card, dev, "analyze --models SimpleCNN NASNetMobile --depths 3", "analyze", two, "--models",
+                    "SimpleCNN", "NASNetMobile", "--depths", "3", "--results-folder", work / "res", "--quiet"))
+    for m in ("SimpleCNN", "NASNetMobile"):
+        for f in (f"{m}-depth-3.csv", f"{m}-summary-depth-3.csv"):
+            if not (work / "res" / "depth-3" / f).is_file():
+                raise AssertionError(f"analyze: no {f}")
+    out["commands"] = [{k: r[k] for k in ("command", "launches", "wall_s")} for r in rows]
+    return out
+
+
 def print_folder(folder: dict, card: str, cpu: str, t0: float) -> None:
     st = folder["stages"]
     print(f"phase 3i [{card}; host {cpu}]: one 3x{H}x{W} frame, encode: load {st['load_s']:.3f} s, H2D "
@@ -1998,6 +2366,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         harness = phase_harness(Path(tmp) / "src", frames, card, torch.device("cuda"), args.reps)
         print(f"phase 3j [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        train = phase_train(Path(tmp), args.seed, card, torch.device("cuda"))
+        print(f"phase 3k [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        commands = phase_cli(Path(tmp), Path(tmp) / "src", frames, card, torch.device("cuda"), args.seed, args.reps)
+        print(f"phase 3l [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
         del frames
 
     for r in rows:
@@ -2005,7 +2379,7 @@ def main(argv=None) -> int:
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc,
-            "folder": folder, "harness": harness}
+            "folder": folder, "harness": harness, "train": train, "cli": commands}
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

@@ -119,9 +119,9 @@ def test_wrong_architecture_fails_loudly(tmp_path):
         cw.map_weights("ResNet50", kw_bad, build("ResNet50"))
     with pytest.raises(ValueError, match="no conversion schema"):
         cw.map_weights("SimpleCNN", kw, build("SimpleCNN"))
-    with pytest.raises(ValueError, match="not ported yet"):
-        cw.map_weights("NASNetMobile", kw, build("MobileNetV2"))
-    assert "NASNetMobile" in cw.SCHEMAS and "NASNetMobile" not in cw.convertible_architectures()
+    with pytest.raises(ValueError, match="missing layers|shape mismatch"):  # NASNet converts (test_torch_nasnet)
+        cw.map_weights("NASNetMobile", kw, build("NASNetMobile"))
+    assert "NASNetMobile" in cw.convertible_architectures()
 
 
 def test_coverage_check_catches_missing_modules(monkeypatch):

@@ -29,8 +29,8 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "wicca_tpu")
-             or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "wicca_tpu.")))
+bad = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax", "wicca_tpu")
+             or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.", "wicca_tpu.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -52,7 +52,9 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
                  "wicca_tpu_torch.data.normalization", "wicca_tpu_torch.utils.timing", "wicca_tpu_torch.utils.env",
                  "wicca_tpu_torch.core.icon_host", "wicca_tpu_torch.models.imagenet", "wicca_tpu_torch.models.nets",
                  "wicca_tpu_torch.models.interop", "wicca_tpu_torch.models.convert", "wicca_tpu_torch.models.registry",
-                 "wicca_tpu_torch.analysis.results", "wicca_tpu_torch.harness.processor"):
+                 "wicca_tpu_torch.analysis.results", "wicca_tpu_torch.harness.processor",
+                 "wicca_tpu_torch.models.nasnet_keras", "wicca_tpu_torch.harness.train", "wicca_tpu_torch.entry",
+                 "wicca_tpu_torch.cli", "wicca_tpu_torch.__main__"):
         assert name in res["modules"]
 
 
@@ -101,7 +103,7 @@ def test_no_jax_import_lines(path):
     for line in (ROOT / path).read_text().splitlines():
         s = line.strip()
         assert not s.startswith(("import jax", "from jax", "import flax", "from flax", "import optax",
-                                 "from optax")), line
+                                 "from optax", "import orbax", "from orbax")), line
         assert not (s.startswith(("from wicca_tpu.", "from wicca_tpu ", "import wicca_tpu"))
                     and not s.startswith(("from wicca_tpu_torch", "import wicca_tpu_torch"))), line
 

@@ -14,8 +14,11 @@ measured cost model, the host encode and decode routes on host C++, pinned
 transfers and a strip-parallel PNG writer) (:mod:`wicca_tpu_torch.codec`);
 and the classification harness with its model zoo
 (:mod:`wicca_tpu_torch.harness`, :mod:`wicca_tpu_torch.models`: source
-images against their icons or codec reconstructions through CNN and ViT
-classifiers, into the reference's result CSVs). The wavelet work runs in
+images against their icons or codec reconstructions through CNN, NASNet and
+ViT classifiers, into the reference's result CSVs), icon fine-tuning
+(:mod:`wicca_tpu_torch.harness.train`), the flagship forward
+(:mod:`wicca_tpu_torch.entry`) and the command line
+(``python -m wicca_tpu_torch``, :mod:`wicca_tpu_torch.cli`). The wavelet work runs in
 hand-written CUDA kernels (``csrc/``, K1-K9), built with nvcc at first use;
 every kernel has a plain PyTorch twin that the CPU runs. The classifiers'
 convolutions and matmuls are PyTorch's, as the JAX package leaves them to

@@ -16,8 +16,8 @@ Layout notes: Keras and Flax both store conv kernels HWIO and dense kernels
 ``(kh, kw, 1, C)``. BatchNorm splits across ``params`` (scale, bias) and
 ``batch_stats`` (mean, var).
 
-Coverage: VGG16/19, ResNet50, MobileNetV2, EfficientNetB0, DenseNet121.
-NASNetMobile's schema is kept and waits for the port's NASNet module.
+Coverage: VGG16/19, ResNet50, MobileNetV2, EfficientNetB0, DenseNet121,
+NASNetMobile (the checkpoint graph, :mod:`wicca_tpu_torch.models.nasnet_keras`).
 Downloading pretrained files (the JAX package's ``fetch_keras_weights``) is
 not ported: nothing here reaches a network.
 """
@@ -193,8 +193,7 @@ def _schema_nasnet_mobile() -> list[tuple[str, tuple, str]]:
     package's ``models/nasnet_keras.NASNetMobileKeras`` with (H, C) shape
     tracking — the adjust-block variant per cell depends on geometry,
     exactly like the Keras functional graph. Layer names equal Keras layer
-    names, so every entry maps (name, (name,), kind). Waits for the port's
-    NASNet module: :func:`map_weights` refuses it until then."""
+    names, so every entry maps (name, (name,), kind)."""
     out: list[tuple[str, tuple, str]] = []
 
     def sep(block_id):
@@ -265,12 +264,8 @@ SCHEMAS = {
 }
 
 
-# schemas whose module the port does not have yet
-_WAITING = ("NASNetMobile",)
-
-
 def convertible_architectures() -> tuple[str, ...]:
-    return tuple(a for a in SCHEMAS if a not in _WAITING)
+    return tuple(SCHEMAS)
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +420,6 @@ def map_weights(arch: str, keras_weights: dict[str, list[np.ndarray]], model: nn
 
     if arch not in SCHEMAS:
         raise ValueError(f"no conversion schema for {arch!r}; have {sorted(SCHEMAS)}")
-    if arch in _WAITING:
-        raise ValueError(f"{arch}: its module is not ported yet; the schema waits for it")
     tree, report = _bind(arch, keras_weights, to_flax_variables(model))
     return carry(tree, model), report
 

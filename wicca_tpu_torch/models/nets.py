@@ -1,8 +1,9 @@
 """The classifier zoo in PyTorch (counterpart of
-``wicca_tpu/models/flax_models.py``, less NASNet): ``SimpleCNN``,
-``MobileNetV2``, ``ResNet50``, ``EfficientNetB0``, ``VGG`` (``VGG16``,
-``VGG19``), ``DenseNet121`` and ``ViT`` (``ViTS16``, ``ViTTiny16``), at
-their published widths.
+``wicca_tpu/models/flax_models.py``): ``SimpleCNN``, ``MobileNetV2``,
+``ResNet50``, ``EfficientNetB0``, ``NASNetMobile`` (the paper's cells; the
+registry's checkpoint graph is :mod:`wicca_tpu_torch.models.nasnet_keras`),
+``VGG`` (``VGG16``, ``VGG19``), ``DenseNet121`` and ``ViT`` (``ViTS16``,
+``ViTTiny16``), at their published widths.
 
 Every model takes an NCHW float32 batch and returns float32 logits. The
 Flax modules' numerics are mirrored:
@@ -25,10 +26,11 @@ Flax modules' numerics are mirrored:
 * VGG flattens its last feature map in NHWC order, as the Flax model does.
 
 VGG's first dense layer and ViT's position embedding depend on the input
-size, so those two take ``image_size``. Parameters are created empty:
-:func:`init_weights` fills them deterministically from a
-``torch.Generator`` (values differ from JAX's init), or a state dict is
-loaded.
+size, so those two take ``image_size``; so do the NASNets, whose cells pick
+their ``adjust`` path from the input's geometry (:class:`Compact`).
+Parameters are created empty: :func:`init_weights` fills them
+deterministically from a ``torch.Generator`` (values differ from JAX's
+init), or a state dict is loaded.
 """
 
 from __future__ import annotations
@@ -66,6 +68,52 @@ class _Named(nn.Module):
             name = f"{kind}_{idx}"
         self.add_module(name, child)
         return child
+
+
+class Compact(_Named):
+    """A module whose children are made during a call, as ``flax.linen.compact``
+    makes them: :meth:`child` names a child by Flax's rule (its class name and
+    its index among the siblings of that class made so far in this call, or
+    an explicit name) and makes it on first use. A subclass writes its graph
+    once, in ``_forward``; its constructor calls :meth:`_build`, which runs
+    that graph on a meta input of ``image_size``, so each child is made with
+    its input's shape and every shape-dependent branch is taken as Flax
+    takes it at that size. A later call that asks for a child the build did
+    not make, or made with other arguments, raises."""
+
+    def __init__(self):
+        super().__init__()
+        self._building = True
+        self._calls: dict[str, int] = {}
+        self._made: dict[str, tuple] = {}  # name -> how it was made
+
+    def child(self, cls, *args, name: str | None = None, **kw) -> nn.Module:
+        if name is None:
+            idx = self._calls.get(cls.__name__, 0)
+            self._calls[cls.__name__] = idx + 1
+            name = f"{cls.__name__}_{idx}"
+        how = (cls, args, kw)
+        if self._made.get(name) != how:
+            if not self._building or name in self._made:
+                raise ValueError(f"{type(self).__name__}: layer {name!r} was not made so by the build; this input "
+                                 "takes a path that the module's image_size did not")
+            self.add_module(name, cls(*args, **kw))
+            self._made[name] = how
+        return self._modules[name]
+
+    def forward(self, *args):
+        self._calls = {}
+        return self._forward(*args)
+
+    def _build(self, image_size) -> None:
+        target = torch.empty(0).device  # the caller's default device (a torch.device context included)
+        with torch.device("meta"):
+            self(torch.zeros(1, 3, *image_size))
+        for m in self.modules():
+            if isinstance(m, Compact):
+                m._building = False
+        if target.type != "meta":
+            self.to_empty(device=target)
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +167,11 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm(use_running_average=True, dtype=float32)`` over
-    the channel axis; float32 out."""
+    the channel axis; float32 out. Where the running statistics require a
+    gradient (the trainer, :mod:`wicca_tpu_torch.harness.train`, trains them
+    as the JAX trainer does), it computes Flax's ``_normalize``,
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, which autograd
+    differentiates in all four."""
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
@@ -130,6 +182,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.running_mean.requires_grad:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x.float() - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias, False, 0.0,
                             self.eps)
 
@@ -368,6 +424,125 @@ class EfficientNetB0(_Named):
             x = block(x)
         top, dense = self.head
         return dense(top(x).mean(dim=(2, 3)).float())
+
+
+def _sep_block(cell: Compact, x, filters: int, kernel: int, stride: int, dtype):
+    """NASNet separable-conv block, made in ``cell``'s scope as Flax's
+    function is: relu -> (depthwise conv, pointwise conv, BatchNorm) -> relu
+    -> (depthwise conv, pointwise conv, BatchNorm)."""
+    h = F.relu(x)
+    for i, s in enumerate((stride, 1)):
+        ch = h.shape[1]
+        h = cell.child(Conv, ch, ch, kernel, s, groups=ch, bias=False, dtype=dtype)(h)
+        h = cell.child(Conv, ch, filters, 1, bias=False, dtype=dtype)(h)
+        h = cell.child(BatchNorm, filters, 1e-5)(h).to(dtype)
+        if i == 0:
+            h = F.relu(h)
+    return h
+
+
+def _shift_subsample(p):
+    """The factorized reduction's two inputs: every second pixel, and every
+    second pixel of the map shifted by one (pad bottom/right, crop
+    top/left); a 1x1 stride-2 average is the subsample."""
+    return p[..., ::2, ::2], F.pad(p, (0, 1, 0, 1))[..., 1:, 1:][..., ::2, ::2]
+
+
+def _adjust(cell: Compact, p, ip, filters: int, dtype):
+    """Match the previous hidden state ``p`` to ``ip``'s height and the
+    cell's filter count (``flax_models._adjust``)."""
+    if p is None:
+        p = ip
+    if p.shape[2] != ip.shape[2]:
+        p1, p2 = _shift_subsample(F.relu(p))
+        p1 = cell.child(Conv, p.shape[1], filters // 2, 1, bias=False, dtype=dtype)(p1)
+        p2 = cell.child(Conv, p.shape[1], filters - filters // 2, 1, bias=False, dtype=dtype)(p2)
+        p = cell.child(BatchNorm, filters, 1e-5)(torch.cat([p1, p2], dim=1)).to(dtype)
+    elif p.shape[1] != filters:
+        p = cell.child(Conv, p.shape[1], filters, 1, bias=False, dtype=dtype)(F.relu(p))
+        p = cell.child(BatchNorm, filters, 1e-5)(p).to(dtype)
+    return p
+
+
+def _avg3(x, stride: int = 1):
+    """Flax's 3x3 'SAME' average: zeros padded, counted in the mean."""
+    (pt, pb), (pl, pr) = (same_padding(n, 3, stride) for n in x.shape[-2:])
+    return F.avg_pool2d(F.pad(x, (pl, pr, pt, pb)), 3, stride)
+
+
+def _max3(x, stride: int = 1):
+    """Flax's 3x3 'SAME' max: -inf padded."""
+    (pt, pb), (pl, pr) = (same_padding(n, 3, stride) for n in x.shape[-2:])
+    return F.max_pool2d(F.pad(x, (pl, pr, pt, pb), value=float("-inf")), 3, stride)
+
+
+class _NormalCellA(Compact):
+    """NASNet-A normal cell (Zoph et al. 2018, fig. 4 left)."""
+
+    def __init__(self, filters: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.filters, self.dtype = filters, dtype
+
+    def _forward(self, x, p):
+        f, dt = self.filters, self.dtype
+        p = _adjust(self, p, x, f, dt)
+        h = self.child(Conv, x.shape[1], f, 1, bias=False, dtype=dt)(F.relu(x))
+        h = self.child(BatchNorm, f, 1e-5)(h).to(dt)
+        x1 = _sep_block(self, h, f, 5, 1, dt) + _sep_block(self, p, f, 3, 1, dt)
+        x2 = _sep_block(self, p, f, 5, 1, dt) + _sep_block(self, p, f, 3, 1, dt)
+        x3 = _avg3(h) + p
+        x4 = _avg3(p) * 2  # two identical avg-pool branches
+        x5 = _sep_block(self, h, f, 3, 1, dt) + h
+        return torch.cat([p, x1, x2, x3, x4, x5], dim=1), x
+
+
+class _ReductionCellA(Compact):
+    """NASNet-A reduction cell (Zoph et al. 2018, fig. 4 right)."""
+
+    def __init__(self, filters: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.filters, self.dtype = filters, dtype
+
+    def _forward(self, x, p):
+        f, dt = self.filters, self.dtype
+        p = _adjust(self, p, x, f, dt)
+        h = self.child(Conv, x.shape[1], f, 1, bias=False, dtype=dt)(F.relu(x))
+        h = self.child(BatchNorm, f, 1e-5)(h).to(dt)
+        x1 = _sep_block(self, h, f, 5, 2, dt) + _sep_block(self, p, f, 7, 2, dt)
+        x2 = _max3(h, 2) + _sep_block(self, p, f, 7, 2, dt)
+        x3 = _avg3(h, 2) + _sep_block(self, p, f, 5, 2, dt)
+        x4 = _avg3(x1) + x2
+        x5 = _sep_block(self, x1, f, 3, 1, dt) + _max3(h, 2)
+        return torch.cat([x2, x3, x4, x5], dim=1), x
+
+
+class NASNetMobile(Compact):
+    """NASNet-A (4 @ 1056) mobile config, 224x224 -> 1000 logits, with the
+    paper's published cells (``flax_models.NASNetMobile``: 'SAME' convs,
+    Flax's pooling, BatchNorm epsilon 1e-5); the registry's NASNetMobile is
+    the checkpoint graph, :class:`~wicca_tpu_torch.models.nasnet_keras.NASNetMobileKeras`."""
+
+    def __init__(self, num_classes: int = 1000, penultimate_filters: int = 1056, cells_per_stack: int = 4,
+                 stem_filters: int = 32, dtype=torch.bfloat16, image_size=(224, 224)):
+        super().__init__()
+        self.num_classes, self.penultimate_filters = num_classes, penultimate_filters
+        self.cells_per_stack, self.stem_filters, self.dtype = cells_per_stack, stem_filters, dtype
+        self._build(image_size)
+
+    def _forward(self, x):
+        f, dt = self.penultimate_filters // 24, self.dtype  # 44 for mobile
+        x = self.child(Conv, 3, self.stem_filters, 3, 2, bias=False, dtype=dt)(x.to(dt))
+        x = self.child(BatchNorm, self.stem_filters, 1e-5)(x).to(dt)
+        p = None
+        x, p = self.child(_ReductionCellA, max(1, f // 4), dt)(x, p)
+        x, p = self.child(_ReductionCellA, max(1, f // 2), dt)(x, p)
+        for mult in (1, 2, 4):
+            if mult > 1:
+                x, p = self.child(_ReductionCellA, f * mult, dt)(x, p)
+            for _ in range(self.cells_per_stack):
+                x, p = self.child(_NormalCellA, f * mult, dt)(x, p)
+        x = F.relu(x).mean(dim=(2, 3)).float()
+        return self.child(Dense, x.shape[1], self.num_classes)(x)
 
 
 class VGG(_Named):

@@ -34,7 +34,7 @@ from torch import nn
 from wicca_tpu_torch._device import host_data_device
 from wicca_tpu_torch.config.aliases import ModelsDict
 from wicca_tpu_torch.config.constants import DEC_PRED, MODEL, PRE_INP, SHAPE
-from wicca_tpu_torch.models import nets
+from wicca_tpu_torch.models import nasnet_keras, nets
 from wicca_tpu_torch.models.imagenet import decode_predictions
 
 # ---------------------------------------------------------------------------
@@ -106,6 +106,9 @@ _ARCHITECTURES: dict[str, tuple[Any, Any]] = {
     "VGG16": (nets.VGG16, preprocess_caffe),
     "VGG19": (nets.VGG19, preprocess_caffe),
     "DenseNet121": (nets.DenseNet121, preprocess_torch),
+    # the checkpoint graph, so that converted hosted weights load; the
+    # paper-cell variant is nets.NASNetMobile
+    "NASNetMobile": (nasnet_keras.NASNetMobileKeras, preprocess_minus1_1),
     "ViTS16": (nets.ViTS16, preprocess_minus1_1),
     "ViTTiny16": (nets.ViTTiny16, preprocess_minus1_1),
 }
@@ -132,7 +135,8 @@ def _instantiate(factory, shape: tuple[int, int], **kw) -> nn.Module:
 
 
 def build(arch: str, shape: tuple[int, int] = (224, 224), **kw) -> nn.Module:
-    """A registered architecture's module, parameters uninitialized."""
+    """A registered architecture's module, parameters uninitialized (on
+    the default device, ``meta`` included)."""
     return _instantiate(_ARCHITECTURES[arch][0], shape, **kw)
 
 
