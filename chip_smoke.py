@@ -129,6 +129,18 @@ Phases, each fatal on failure:
       (bytes and pixels equal to the in-process API on the card),
       ``icon``, ``info``, and ``analyze --models SimpleCNN NASNetMobile`` on
       two frames; each command's launches and wall time;
+   m. the mesh (``wicca_tpu_torch.parallel``) in worlds of ranks on this
+      card, each rank counting its own launches around each call: one NCCL
+      rank (``make_mesh(1, 1, 1)``, the health check, the Haar
+      ``tiled_encode``/``tiled_decode`` of the frame), then four gloo ranks
+      sharing the card on a (1, 2, 2) mesh: ``tiled_icon``, the tiled codec
+      (Haar, ``haar_int``, ``legall5.3`` + ``rct`` global and per shard at an
+      aligned 3x8192x16384 frame, ``bior4.4`` + ``ict``), ``tiled_stats``,
+      ``dp_icons`` and ``dp_encode_decode_psnr`` on a ``data=4`` mesh, tp,
+      pp and ep, ``finetune_on_icons`` over ``data=4`` on phase k's folder
+      and one step against the single-device step; then
+      ``dryrun_multichip(4)``, four gloo ranks sharing the card, each
+      rank's K2/K3/K6/K7 launches checked (:func:`phase_mesh`);
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -1952,27 +1964,38 @@ def train_step_check(dev, seed: int) -> dict:
     want, got = losses
     if not abs(got - want) <= 1e-5 * abs(want) + 2e-7:
         raise AssertionError(f"train_step: the card's loss {got} differs from the CPU's {want}")
-    worst = worst_sure = moved = 0.0
+    out = step_agreement("train_step: the card against the CPU", list(cpu.state_dict()), grads[0], grads[1],
+                         states[0], states[1])
+    moved = max(float((pc - p0).abs().max()) for pc, p0 in zip(states[0], before))
+    if moved < 5e-4:
+        raise AssertionError(f"train_step: the largest move is {moved}")
+    return {"loss": got, "cpu_loss": want, **out, "largest_move": moved}
+
+
+def step_agreement(what: str, names, want_grads, got_grads, want_states, got_states) -> dict:
+    """Hold one stepped state against another under the ``GRAD_RTOL`` rule
+    (see there): each tensor's gradients within GRAD_RTOL of its largest,
+    the state within STEP_TOL where the update is sure, within 2 lr +
+    STEP_TOL anywhere. Returns the measured differences."""
+    worst = worst_sure = 0.0
     sure_n = n = 0
     rel = {}
-    for name, gc, gg, pc, pg, p0 in zip(cpu.state_dict(), *grads, *states, before):
-        gmax, gdiff = float(gc.abs().max()), float((gg - gc).abs().max())
+    for name, gw, gg, pw, pg in zip(names, want_grads, got_grads, want_states, got_states):
+        gmax, gdiff = float(gw.abs().max()), float((gg - gw).abs().max())
         rel[name] = gdiff / gmax if gmax else float(gg.abs().max())
-        sure = gc.abs() >= max(100 * gdiff, 100 * 1e-8)
-        err = (pg - pc).abs()
+        sure = gw.abs() >= max(100 * gdiff, 100 * 1e-8)
+        err = (pg - pw).abs()
         worst = max(worst, float(err.max()))
         worst_sure = max(worst_sure, float(err[sure].max()) if sure.any() else 0.0)
         sure_n += int(sure.sum())
         n += err.numel()
-        moved = max(moved, float((pc - p0).abs().max()))
     grad_err = max(rel.values())
-    if grad_err > GRAD_RTOL or worst_sure > STEP_TOL or worst > 2e-3 + STEP_TOL or moved < 5e-4:
-        raise AssertionError(f"train_step: the card differs from the CPU: gradients by {grad_err} of their "
-                             f"largest, the state by {worst_sure} where the update is sure ({sure_n} of "
-                             f"{n}), {worst} anywhere; largest move {moved}")
-    return {"loss": got, "cpu_loss": want, "grad_rel_err": grad_err, "grad_rel_err_at": max(rel, key=rel.get),
+    if grad_err > GRAD_RTOL or worst_sure > STEP_TOL or worst > 2e-3 + STEP_TOL:
+        raise AssertionError(f"{what}: gradients by {grad_err} of their largest, the state by {worst_sure} where "
+                             f"the update is sure ({sure_n} of {n}), {worst} anywhere")
+    return {"grad_rel_err": grad_err, "grad_rel_err_at": max(rel, key=rel.get),
             "grad_rel_err_median": statistics.median(rel.values()), "max_abs_err_sure": worst_sure,
-            "max_abs_err": worst, "elements_sure": sure_n, "elements": n, "largest_move": moved}
+            "max_abs_err": worst, "elements_sure": sure_n, "elements": n}
 
 
 def step_parts_ms(state: dict, dev, reps: int) -> dict:
@@ -2222,6 +2245,408 @@ def phase_cli(tmp, src, frames, card: str, dev, seed: int, reps: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: the mesh (wicca_tpu_torch.parallel) in worlds of ranks on this
+# card (after phase 3's counters are read; every rank counts its own
+# launches around each call)
+# ---------------------------------------------------------------------------
+
+MESH_TILES = (1, 2, 2)  # (data, ty, tx) of world (b)
+MESH_ALIGNED = (3, 8192, 16384)  # legall5.3 at depth 5 aligns with the (2, 2) tiles: per-shard K6/K7
+DP_FRAMES = (4, 3, 2048, 2048)
+MESH_TRAIN = dict(TRAIN, epochs=1)
+# each rank of dryrun_multichip: K2/K3 once (one depth-2 Haar pass each
+# way), K6/K7 once per level of its depth-2 haar_int roundtrip
+DRYRUN_LAUNCHES = {"dwt_multilevel_quant": 1, "idwt_multilevel_dequant": 1, "dwt53_multilevel": 2,
+                   "idwt53_multilevel": 2}
+
+
+def seeded_frame(shape, seed: int, dev) -> torch.Tensor:
+    """A uint8 frame made on the card from ``seed`` (the same on every rank)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=g)
+
+
+def mesh_call(rows: list, what: str, want: dict, fn, *args, **kw):
+    """``fn(*args, **kw)`` with this rank's launch and halo counters set to 0
+    just before and read just after, its wall time (the card synchronized);
+    fails unless the launches are exactly ``want``."""
+    from wicca_tpu_torch.parallel.halo import HALO, reset_halo_counts
+
+    reset_all_launches()
+    reset_halo_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    row = {"call": what, "wall_s": time.perf_counter() - t0,
+           "launches": {k: v for k, v in launch_counts().items() if v}, "halo": dict(HALO)}
+    if row["launches"] != want:
+        raise AssertionError(f"{what}: launched {row['launches']}, expected {want}")
+    rows.append(row)
+    return out
+
+
+def shard_of(dt, full: torch.Tensor) -> torch.Tensor:
+    """The part of ``full`` that this rank holds of the DTensor ``dt``."""
+    from torch.distributed.tensor import Shard
+
+    from wicca_tpu_torch.comm import chunk_bounds
+
+    mesh, out = dt.device_mesh, full
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(dt.placements):
+        if isinstance(p, Shard):
+            lo, hi = chunk_bounds(full.shape[p.dim], mesh.shape[i])[coord[i]]
+            out = out.narrow(p.dim, lo, hi - lo)
+    return out
+
+
+def check_shards(what: str, dts, fulls, tol: float = 0.0) -> float:
+    """Every DTensor's local shard against the same part of its full
+    tensor; returns the largest |difference| (fails above ``tol``)."""
+    err = 0.0
+    for dt, full in zip(dts, fulls):
+        got, want = dt.to_local(), shard_of(dt, full)
+        if tuple(dt.shape) != tuple(full.shape) or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: {got.dtype}{tuple(dt.shape)} against {want.dtype}{tuple(full.shape)}")
+        if got.numel():
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    if err > tol:
+        raise AssertionError(f"{what}: shards differ from the single-device result by {err} (tolerance {tol})")
+    return err
+
+
+def stream_tensors(st) -> list:
+    return [st.ll] + flat(st.details)
+
+
+def mesh_warm_up(mesh) -> None:
+    """One small Haar mesh roundtrip and icon, so that the timed calls find
+    the process's CUDA modules and DTensor's dispatch loaded."""
+    from wicca_tpu_torch.ops import _build
+    from wicca_tpu_torch.parallel import gather, tiled_decode, tiled_encode, tiled_icon
+    from wicca_tpu_torch.parallel.mesh import mesh_device
+
+    _build.library()
+    x = seeded_frame((3, 256, 384), 0, mesh_device(mesh))
+    gather(tiled_decode(tiled_encode(x, 2, mesh=mesh), mesh=mesh, emit_u8=True))
+    gather(tiled_icon(x, 2, mesh=mesh))
+    torch.cuda.synchronize()
+
+
+def mesh_world_nccl(seed: int) -> dict:
+    """World (a): one rank on the card over NCCL: ``make_mesh(1, 1, 1)``, the
+    health check (an NCCL all-reduce on each mesh dim), the Haar
+    ``tiled_encode``/``tiled_decode`` of a seeded 3x8704x6144 frame equal to
+    the single-device codec bit for bit."""
+    from wicca_tpu_torch import QuantSpec, decode, encode
+    from wicca_tpu_torch.parallel import make_mesh, mesh_health_check, tiled_decode, tiled_encode
+    from wicca_tpu_torch.parallel.mesh import mesh_device
+
+    rows: list = []
+    mesh = make_mesh(1, 1, 1)
+    if not mesh_health_check(mesh, 60.0):
+        raise AssertionError("mesh_health_check failed on the NCCL world")
+    mesh_warm_up(mesh)
+    x = seeded_frame((3, H, W), seed, mesh_device(mesh))
+    spec = QuantSpec(1.0)
+    st = mesh_call(rows, "tiled_encode haar", {"dwt_multilevel_quant": 2}, tiled_encode, x, LEVELS, spec, mesh=mesh)
+    rec = mesh_call(rows, "tiled_decode haar emit_u8", {"idwt_multilevel_dequant": 2}, tiled_decode, st, mesh=mesh,
+                    emit_u8=True)
+    ref = encode(x, LEVELS, spec)
+    check_shards("NCCL haar stream", stream_tensors(st), stream_tensors(ref))
+    check_shards("NCCL haar decode", [rec], [decode(ref, emit_u8=True)])
+    return {"backend": torch.distributed.get_backend(), "calls": rows}
+
+
+def mesh_step_check(mesh, seed: int) -> dict:
+    """One float32 MobileNetV2 ``train_step`` (2 classes, ``STEP_BATCH``),
+    each rank of ``data`` on its rows, the gradients averaged over the
+    mesh; rank 0 holds it against the single-device step on the whole batch
+    under the ``GRAD_RTOL`` rule, and every rank's stepped state must be
+    the same."""
+    from wicca_tpu_torch.harness import train as T
+    from wicca_tpu_torch.models import nets
+    from wicca_tpu_torch.comm import all_reduce_
+    from wicca_tpu_torch.parallel.mesh import DATA_AXIS, axis_index, axis_size, mesh_device
+
+    dev = mesh_device(mesh)
+    bs, size = STEP_BATCH
+    share = bs // axis_size(mesh, DATA_AXIS)
+    rng = np.random.default_rng(seed)
+    xb = torch.from_numpy(rng.uniform(-1, 1, (bs, 3, size, size)).astype(np.float32))
+    yb = torch.from_numpy(rng.integers(0, 2, bs))
+    rows = slice(axis_index(mesh, DATA_AXIS) * share, (axis_index(mesh, DATA_AXIS) + 1) * share)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+    try:
+        models, grads, states, losses = [], [], [], []
+        runs = [(xb[rows], yb[rows], mesh.get_group(DATA_AXIS))]
+        if torch.distributed.get_rank() == 0:
+            runs.append((xb, yb, None))
+        for x, y, group in runs:
+            model = nets.init_weights(nets.MobileNetV2(num_classes=2, dtype=torch.float32),
+                                      torch.Generator().manual_seed(seed)).to(dev)
+            state = T.trainable(model)
+            losses.append(float(T.train_step(model, T.OptaxAdam(state, 1e-3), x.to(dev), y.to(dev), group)))
+            grads.append([t.grad.cpu() for t in state])
+            states.append([t.detach().cpu() for t in state])
+            models.append(model)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    total = torch.tensor([sum(float(t.double().sum()) for t in states[0])], dtype=torch.float64, device=dev)
+    lo, hi = total.clone(), total.clone()
+    all_reduce_(lo, mesh.get_group(DATA_AXIS), torch.distributed.ReduceOp.MIN)
+    all_reduce_(hi, mesh.get_group(DATA_AXIS), torch.distributed.ReduceOp.MAX)
+    if float(lo) != float(hi):
+        raise AssertionError(f"the ranks' stepped states differ (sums {float(lo)} to {float(hi)})")
+    out["state_sum"] = float(total)
+    if len(runs) == 1:
+        return out
+    (loss, want_loss), (gm, gs), (pm, ps) = losses, grads, states
+    if not abs(loss - want_loss) <= 1e-5 * abs(want_loss) + 2e-7:
+        raise AssertionError(f"mesh train_step: loss {loss} against the single-device {want_loss}")
+    out.update(loss=loss, single_loss=want_loss,
+               **step_agreement("mesh train_step against the single-device step", list(models[0].state_dict()),
+                                gs, gm, ps, pm))
+    return out
+
+
+def mesh_world_shared(seed: int, train_root: str) -> dict:
+    """World (b): four gloo ranks sharing the card, each check fatal (see
+    :func:`phase_mesh`). Returns this rank's calls, checks and (rank 0)
+    device idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wicca_tpu_torch import QuantSpec, decode, encode, psnr
+    from wicca_tpu_torch.codec import serialize
+    from wicca_tpu_torch.codec.pipeline import _encode_global
+    from wicca_tpu_torch.core.color import ict_fwd_codec, rct_fwd_codec
+    from wicca_tpu_torch.harness import train as T
+    from wicca_tpu_torch.ops.dwt_cuda import icon
+    from wicca_tpu_torch.parallel import (
+        batch as pbatch,
+        gather,
+        make_mesh,
+        mesh_health_check,
+        tiled_decode,
+        tiled_encode,
+        tiled_icon,
+        tiled_stats,
+    )
+    from wicca_tpu_torch.parallel import model_parallel as mp
+    from wicca_tpu_torch.parallel.mesh import mesh_device
+
+    rank = torch.distributed.get_rank()
+    rows: list = []
+    checks: dict = {}
+    os.environ["WICCA_TPU_ICON_PATH"] = "device"
+    prof_ctx = profile(activities=[ProfilerActivity.CUDA]) if rank == 0 else contextlib.nullcontext()
+    t_all = time.perf_counter()
+    with prof_ctx as prof:
+        mesh = make_mesh(*MESH_TILES)
+        dev = mesh_device(mesh)
+        if not mesh_health_check(mesh, 60.0):
+            raise AssertionError("mesh_health_check failed on the shared-card gloo world")
+        mesh_warm_up(mesh)
+        x = seeded_frame((3, H, W), seed, dev)
+        spec = QuantSpec(1.0)
+        ic = mesh_call(rows, "tiled_icon depth 5", {"icon": 1}, tiled_icon, x, LEVELS, mesh=mesh)
+        check_shards("tiled_icon", [ic], [icon(x, LEVELS)])
+
+        st = mesh_call(rows, "tiled_encode haar", {"dwt_multilevel_quant": 2}, tiled_encode, x, LEVELS, spec,
+                       mesh=mesh)
+        rec = mesh_call(rows, "tiled_decode haar emit_u8", {"idwt_multilevel_dequant": 2}, tiled_decode, st,
+                        mesh=mesh, emit_u8=True)
+        ref = encode(x, LEVELS, spec)
+        check_shards("haar stream", stream_tensors(st), stream_tensors(ref))
+        check_shards("haar decode", [rec], [decode(ref, emit_u8=True)])
+        t0 = time.perf_counter()
+        if serialize(st, threads=2) != serialize(ref, threads=2):
+            raise AssertionError("the .wct bytes of the gathered mesh stream differ from the single-device stream's")
+        checks["haar_wct_s"] = time.perf_counter() - t0
+        del st, rec, ref
+
+        st = mesh_call(rows, "tiled_encode haar_int", {"dwt53_multilevel": LEVELS}, tiled_encode, x, LEVELS,
+                       wavelet="haar_int", mesh=mesh)
+        rec = mesh_call(rows, "tiled_decode haar_int emit_u8", {"idwt53_multilevel": LEVELS}, tiled_decode, st,
+                        mesh=mesh, emit_u8=True)
+        check_shards("haar_int stream", stream_tensors(st), stream_tensors(encode(x, LEVELS, wavelet="haar_int")))
+        check_shards("haar_int decode (lossless)", [rec], [x])
+        del st, rec
+
+        st = mesh_call(rows, "tiled_encode legall5.3+rct (global)", {}, tiled_encode, x, LEVELS,
+                       wavelet="legall5.3", color="rct", mesh=mesh)
+        rec = mesh_call(rows, "tiled_decode legall5.3+rct (global) emit_u8", {}, tiled_decode, st, mesh=mesh,
+                        emit_u8=True)
+        if st.layout != "global":
+            raise AssertionError(f"legall5.3 at 3x{H}x{W} on (2, 2) took layout {st.layout}")
+        gll, gdets = _encode_global(rct_fwd_codec(x), LEVELS, spec, "legall5.3", torch.int16)
+        check_shards("legall5.3+rct global stream", stream_tensors(st),
+                     [gll] + [b.to(torch.int16) for b in flat(gdets)])
+        check_shards("legall5.3+rct global decode (lossless)", [rec], [x])
+        del st, rec, gll, gdets
+
+        xa = seeded_frame(MESH_ALIGNED, seed + 1, dev)
+        st = mesh_call(rows, "tiled_encode legall5.3+rct (aligned, per shard)", {"dwt53_multilevel": LEVELS},
+                       tiled_encode, xa, LEVELS, wavelet="legall5.3", color="rct", mesh=mesh)
+        rec = mesh_call(rows, "tiled_decode legall5.3+rct (aligned, per shard) emit_u8",
+                        {"idwt53_multilevel": LEVELS}, tiled_decode, st, mesh=mesh, emit_u8=True)
+        if st.layout != "tiled":
+            raise AssertionError(f"legall5.3 at {MESH_ALIGNED} on (2, 2) took layout {st.layout}")
+        check_shards("legall5.3+rct aligned stream", stream_tensors(st),
+                     stream_tensors(encode(xa, LEVELS, wavelet="legall5.3", color="rct")))
+        check_shards("legall5.3+rct aligned decode (lossless)", [rec], [xa])
+        del st, rec, xa
+
+        st = mesh_call(rows, "tiled_encode bior4.4+ict gain 2 (global)", {}, tiled_encode, x, LEVELS, spec,
+                       "bior4.4", color="ict", chroma_gain=2.0, mesh=mesh)
+        rec = mesh_call(rows, "tiled_decode bior4.4+ict (global) emit_u8", {}, tiled_decode, st, mesh=mesh,
+                        emit_u8=True)
+        gll, gdets = _encode_global(ict_fwd_codec(x, 2.0), LEVELS, spec, "bior4.4", torch.int16)
+        # stated tolerance (tests/test_torch_dwt97.py): LL within 1e-3, codes within 1
+        checks["bior44_ll_max_abs_err"] = check_shards("bior4.4+ict LL", [st.ll], [gll], 1e-3)
+        checks["bior44_codes_max_abs_err"] = check_shards("bior4.4+ict codes", flat(st.details), flat(gdets), 1.0)
+        db = float(psnr(gather(rec), x))
+        if not db > 30.0:
+            raise AssertionError(f"bior4.4+ict mesh roundtrip PSNR {db} dB <= 30")
+        checks["bior44_psnr_db"] = db
+        del st, rec, gll, gdets
+
+        stats = mesh_call(rows, "tiled_stats", {}, tiled_stats, x, mesh=mesh)
+        xf = x.to(torch.float64)
+        want = {"mean": float(xf.mean()), "std": float(xf.std(unbiased=False)), "min": float(x.min()),
+                "max": float(x.max())}
+        if (abs(stats["mean"] - want["mean"]) > 1e-3 or abs(stats["std"] - want["std"]) > 1e-2
+                or stats["min"] != want["min"] or stats["max"] != want["max"]):
+            raise AssertionError(f"tiled_stats {stats} against torch's {want}")
+        checks["stats"], checks["stats_torch"] = stats, want
+        del x
+
+        dmesh = make_mesh(4, 1, 1)
+        frames = seeded_frame(DP_FRAMES, seed + 2, dev)
+        icons = mesh_call(rows, "dp_icons depth 5", {"icon": 1}, pbatch.dp_icons, frames, LEVELS, mesh=dmesh)
+        check_shards("dp_icons", [icons], [icon(frames, LEVELS)])
+        ps = mesh_call(rows, "dp_encode_decode_psnr depth 5",
+                       {"dwt_multilevel_quant": 2, "idwt_multilevel_dequant": 2},
+                       pbatch.dp_encode_decode_psnr, frames, LEVELS, spec, mesh=dmesh)
+        want_ps = torch.stack([psnr(decode(encode(f, LEVELS, spec)), f) for f in frames])
+        checks["dp_psnr_db"] = ps.tolist()
+        if not torch.allclose(ps, want_ps, rtol=1e-5, atol=0):
+            raise AssertionError(f"dp_encode_decode_psnr {ps.tolist()} against {want_ps.tolist()}")
+        del frames, icons
+
+        mm = mp.model_mesh()
+        g = torch.Generator().manual_seed(seed)
+        tp = mp.tp_mlp_init(g, 64, 256, 32)
+        pp = mp.pp_stages_init(g, 4, 64)
+        moe = mp.moe_init(g, 8, 64, 128)
+        xt = torch.randn(64, 64, generator=g)
+        mbs = torch.randn(8, 16, 64, generator=g)
+        tok = torch.randn(256, 64, generator=g)
+        to = lambda p: {k: v.to(dev) for k, v in p.items()}  # noqa: E731
+        for name, fn, ref_fn, params, inp in (("tp", mp.tp_mlp_apply, mp.tp_mlp_reference, tp, xt),
+                                              ("pp", mp.pp_apply, mp.pp_reference, pp, mbs),
+                                              ("ep", mp.moe_apply, mp.moe_reference, moe, tok)):
+            got = mesh_call(rows, f"{name} apply", {}, fn, params, inp.to(dev), mm)
+            want_t = ref_fn(to(params), inp.to(dev))
+            checks[f"{name}_max_abs_err"] = float((got - want_t).abs().max())
+            if not torch.allclose(got, want_t, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{name} differs from its oracle by {checks[f'{name}_max_abs_err']}")
+
+        cfg = T.TrainConfig(**MESH_TRAIN, seed=seed)
+        steps = TRAIN_FRAMES // TRAIN["batch_size"]
+        share = [np.empty(TRAIN_SHAPE, np.uint8)] * (TRAIN["batch_size"] // 4)
+        state, info = mesh_call(rows, "finetune_on_icons mesh data 4", {"icon": steps * icon_launches_expected(
+            share, TRAIN["depth"])}, T.finetune_on_icons, train_root, cfg, mesh=dmesh)
+        losses = [h["loss"] for h in info["history"]]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"mesh training losses {losses}")
+        checks["train_losses"] = losses
+        checks["train_state_sum"] = sum(float(v.double().sum()) for v in state.values())
+        del state
+        checks["step_check"] = mesh_step_check(dmesh, seed)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    out = {"rank": rank, "calls": rows, "checks": checks, "wall_s": wall,
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        busy_us = kernel_busy_us(prof)
+        out.update(kernel_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e6 / wall)
+    return out
+
+
+def phase_mesh(tmp, seed: int, card: str) -> dict:
+    """Phase 3m, each check fatal; every rank counts its own launches around
+    each call (exact counts: K1 once per icon, K2/K3 twice per depth-5 codec
+    call (passes of 3 and 2 levels), K6/K7 once per level, none on the halo
+    path); each rank warms up (:func:`mesh_warm_up`) before its first timed
+    call:
+
+    (a) one rank on the card over NCCL (:func:`mesh_world_nccl`);
+    (b) four ranks sharing the card over gloo, the port's exchanges staged
+        through pinned host memory, mesh (1, 2, 2): ``tiled_icon`` depth 5
+        of a seeded 3x8704x6144 frame bit for bit as the single-device K1
+        icon; ``tiled_encode``/``tiled_decode`` depth 5: Haar
+        ``QuantSpec(1.0)`` with ``emit_u8`` (the stream, its decode and the
+        ``.wct`` bytes of the gathered stream equal the single-device
+        port's), ``haar_int`` (stream equal, lossless), ``legall5.3`` +
+        ``rct`` in the global layout at that frame (the whole-image lifting
+        transform bit for bit, lossless) and per shard on K6/K7 at
+        3x8192x16384 (the single-device stream bit for bit, lossless),
+        ``bior4.4`` + ``ict`` gain 2 in the global layout (within the float
+        tolerance of the single-device whole-image transform, PSNR > 30 dB);
+        ``tiled_stats`` against torch's statistics; on a ``data=4`` mesh,
+        ``dp_icons`` and ``dp_encode_decode_psnr`` of four 3x2048x2048 frames
+        against the single-device calls; tp, pp and ep on ``model_mesh``
+        against their oracles; ``finetune_on_icons`` (MobileNetV2 224x224,
+        batch 32, one epoch) over ``data=4`` on phase 3k's folder, and one
+        float32 step held against the single-device step under
+        ``GRAD_RTOL`` with every rank's state the same;
+    (c) ``dryrun_multichip(4)``: four gloo ranks sharing the card (this
+        host has one), each rank's launches exactly ``DRYRUN_LAUNCHES``
+        (its depth-2 Haar and ``haar_int`` mesh roundtrips).
+    """
+    from wicca_tpu_torch.entry import dryrun_multichip
+    from wicca_tpu_torch.parallel import run_world
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["nccl"] = run_world(mesh_world_nccl, 1, seed, backend="nccl", device_type="cuda", timeout_s=300)[0]
+    out["nccl"]["world_s"] = time.perf_counter() - t0
+    for r in out["nccl"]["calls"]:
+        print(f"phase 3m [{card}]: (a) NCCL, 1 rank: {r['call']}: {r['wall_s']:.4f} s, launches "
+              f"{json.dumps(r['launches'])}", flush=True)
+    print(f"phase 3m [{card}]: (a) world {out['nccl']['world_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_world(mesh_world_shared, 4, seed, str(tmp / "train"), backend="gloo", device_type="cuda",
+                      timeout_s=600)
+    out["shared"] = {"world_s": time.perf_counter() - t0, "ranks": ranks}
+    for r in ranks:
+        for c in r["calls"]:
+            print(f"phase 3m [{card}]: (b) gloo, 4 ranks on one card, rank {r['rank']}: {c['call']}: "
+                  f"{c['wall_s']:.4f} s, launches {json.dumps(c['launches'])}, halo exchanges "
+                  f"{c['halo']['exchanges']} ({c['halo']['bytes']} bytes sent)", flush=True)
+    r0 = ranks[0]
+    print(f"phase 3m [{card}]: (b) rank 0 checks {json.dumps(r0['checks'])}; rank walls "
+          f"{[round(r['wall_s'], 3) for r in ranks]} s, peaks {[round(r['peak_GB'], 2) for r in ranks]} GB; "
+          f"rank 0 device busy {r0['kernel_busy_ms']:.1f} ms of {r0['wall_s']:.2f} s (idle share "
+          f"{r0['idle_share']:.5f}); world {out['shared']['world_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(4)
+    out["dryrun"] = {"s": time.perf_counter() - t0, "ranks": ranks}
+    for rank, r in enumerate(ranks):
+        if r["launches"] != DRYRUN_LAUNCHES:
+            raise AssertionError(f"dryrun_multichip(4) rank {rank}: launched {r['launches']}, expected "
+                                 f"{DRYRUN_LAUNCHES}")
+    print(f"phase 3m [{card}]: (c) dryrun_multichip(4) (gloo, 4 ranks on one card), launches per rank "
+          f"{json.dumps(DRYRUN_LAUNCHES)} on each; rank 0 {json.dumps(ranks[0])}; {out['dryrun']['s']:.1f} s",
+          flush=True)
+    return out
+
+
 def print_folder(folder: dict, card: str, cpu: str, t0: float) -> None:
     st = folder["stages"]
     print(f"phase 3i [{card}; host {cpu}]: one 3x{H}x{W} frame, encode: load {st['load_s']:.3f} s, H2D "
@@ -2373,13 +2798,16 @@ def main(argv=None) -> int:
         commands = phase_cli(Path(tmp), Path(tmp) / "src", frames, card, torch.device("cuda"), args.seed, args.reps)
         print(f"phase 3l [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
         del frames
+        t0 = time.perf_counter()
+        mesh = phase_mesh(Path(tmp), args.seed, card)
+        print(f"phase 3m [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for r in rows:
         print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc,
-            "folder": folder, "harness": harness, "train": train, "cli": commands}
+            "folder": folder, "harness": harness, "train": train, "cli": commands, "mesh": mesh}
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

@@ -54,7 +54,11 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
                  "wicca_tpu_torch.models.interop", "wicca_tpu_torch.models.convert", "wicca_tpu_torch.models.registry",
                  "wicca_tpu_torch.analysis.results", "wicca_tpu_torch.harness.processor",
                  "wicca_tpu_torch.models.nasnet_keras", "wicca_tpu_torch.harness.train", "wicca_tpu_torch.entry",
-                 "wicca_tpu_torch.cli", "wicca_tpu_torch.__main__"):
+                 "wicca_tpu_torch.cli", "wicca_tpu_torch.__main__", "wicca_tpu_torch.parallel",
+                 "wicca_tpu_torch.comm", "wicca_tpu_torch.parallel.mesh", "wicca_tpu_torch.parallel.layout",
+                 "wicca_tpu_torch.parallel.halo", "wicca_tpu_torch.parallel.tiled", "wicca_tpu_torch.parallel.codec",
+                 "wicca_tpu_torch.parallel.batch", "wicca_tpu_torch.parallel.model_parallel",
+                 "wicca_tpu_torch.parallel.scaling", "wicca_tpu_torch.parallel.launch"):
         assert name in res["modules"]
 
 
@@ -336,3 +340,40 @@ def test_harness_on_the_card(tmp_path, monkeypatch):
     for depth in (1, 3):
         name = f"depth-{depth}/m-depth-{depth}.csv"
         assert (tmp_path / "cuda" / name).is_file() and (tmp_path / "cpu" / name).is_file()
+
+
+def _mesh_on_the_card_rank() -> dict:
+    """One rank of ``test_mesh_on_the_card``: the Haar mesh codec and icon
+    on a (1, 2, 2) mesh of ranks sharing the card, against the
+    single-device kernels."""
+    from wicca_tpu_torch.parallel import gather, make_mesh, mesh_health_check, tiled_decode, tiled_encode, tiled_icon
+
+    mesh = make_mesh(1, 2, 2)
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (3, 200, 344), dtype=np.uint8)).cuda()
+    dwt_cuda.reset_launches()
+    st = tiled_encode(x, 3, QuantSpec(1.0), mesh=mesh)
+    rec = tiled_decode(st, mesh=mesh, emit_u8=True)
+    icon = tiled_icon(x, 3, mesh=mesh)
+    launches = dict(dwt_cuda.LAUNCHES)
+    ref = encode(x, 3, QuantSpec(1.0))
+    same = torch.equal(gather(st.ll), ref.ll) and all(
+        torch.equal(gather(a), b) for da, db in zip(st.details, ref.details) for a, b in zip(da, db))
+    return {"healthy": mesh_health_check(mesh, 60.0), "stream": same,
+            "decode": torch.equal(gather(rec), decode(ref, emit_u8=True)),
+            "icon": torch.equal(gather(icon), dwt_cuda.icon(x, 3)), "launches": launches}
+
+
+@pytest.mark.cuda
+def test_mesh_on_the_card():
+    """On a card: four gloo ranks sharing it run the Haar mesh codec and
+    icon through K1-K3 on every rank, the gathered stream and pixels equal
+    to the single-device kernels' (``python3 chip_smoke.py`` phase 3m runs
+    the full-size mesh, NCCL included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    from wicca_tpu_torch.parallel import run_world
+
+    for r in run_world(_mesh_on_the_card_rank, 4, backend="gloo", device_type="cuda", timeout_s=300):
+        assert r["healthy"] and r["stream"] and r["decode"] and r["icon"]
+        assert r["launches"]["dwt_multilevel_quant"] == 1 and r["launches"]["idwt_multilevel_dequant"] == 1
+        assert r["launches"]["icon"] == 1

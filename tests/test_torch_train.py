@@ -218,7 +218,9 @@ def test_streaming_loader_holds_one_batch(tmp_path, monkeypatch):
 
 
 def test_the_device_rule_and_the_mesh(class_folders, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A mesh is a DeviceMesh with a 'data' dim (training over one is
+    ``tests/test_torch_parallel_batch.py``'s); anything else raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.finetune_on_icons(class_folders, config(), mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -16,9 +16,14 @@ and the classification harness with its model zoo
 (:mod:`wicca_tpu_torch.harness`, :mod:`wicca_tpu_torch.models`: source
 images against their icons or codec reconstructions through CNN, NASNet and
 ViT classifiers, into the reference's result CSVs), icon fine-tuning
-(:mod:`wicca_tpu_torch.harness.train`), the flagship forward
-(:mod:`wicca_tpu_torch.entry`) and the command line
-(``python -m wicca_tpu_torch``, :mod:`wicca_tpu_torch.cli`). The wavelet work runs in
+(:mod:`wicca_tpu_torch.harness.train`, data parallel over a mesh too), the
+flagship forward and the multi-rank dry run (:mod:`wicca_tpu_torch.entry`),
+the command line (``python -m wicca_tpu_torch``, :mod:`wicca_tpu_torch.cli`),
+and the mesh on ``torch.distributed`` (:mod:`wicca_tpu_torch.parallel`: a
+``DeviceMesh`` over ``(data, ty, tx)``, tiled icons and transforms with
+halo exchange, the tiled codec on the pass kernels per shard, the
+data-parallel batched codec, tp/pp/ep, and ``run_world`` for a world of
+local processes; imported on its own, not by this package). The wavelet work runs in
 hand-written CUDA kernels (``csrc/``, K1-K9), built with nvcc at first use;
 every kernel has a plain PyTorch twin that the CPU runs. The classifiers'
 convolutions and matmuls are PyTorch's, as the JAX package leaves them to

@@ -62,6 +62,7 @@ import torch
 
 from wicca_tpu_torch._device import host_data_device
 from wicca_tpu_torch.codec.pipeline import CodeStream
+from wicca_tpu_torch.comm import gather_stream
 from wicca_tpu_torch.core.quant import QuantSpec
 from wicca_tpu_torch.native.rice import rc_decode, rc_encode, rice_decode, rice_encode
 
@@ -261,7 +262,9 @@ def serialize(
     ``quality_layers`` > 1 writes the SNR-layered variant; ``checksums``
     appends the integrity trailer; ``ll_codec`` 'rice' (integer LL,
     lossless) or 'quant' (float LL at ``ll_step``) codes the LL (WC10),
-    'raw' keeps the <= WCT9 layout."""
+    'raw' keeps the <= WCT9 layout. A mesh stream is gathered first
+    (:func:`~wicca_tpu_torch.comm.gather_stream`)."""
+    stream = gather_stream(stream)
     if codec not in ("auto", "rice", "rc"):
         raise ValueError(f"codec must be auto|rice|rc, got {codec!r}")
     if not 1 <= quality_layers <= 15:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch._device import as_tensor
+from wicca_tpu_torch.comm import gather_stream
 from wicca_tpu_torch.core.color import ict_fwd_codec, ict_inv_codec, rct_fwd_codec, rct_inv_codec
 from wicca_tpu_torch.core.lifting import dwt2_level_lifting, idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
 from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
@@ -406,8 +407,9 @@ def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5)
     transform follows or the pass undoes it itself; uint16 for
     high-bit-depth streams). ``recon_offset``
     is the deadzone reconstruction point of lossy codes as a fraction of the
-    bin (0.5 = midpoint). Runs where the stream's tensors lie."""
-    stream = _widen_div_int(_normalize_roi(stream))
+    bin (0.5 = midpoint). Runs where the stream's tensors lie; a mesh
+    stream is gathered first (:func:`~wicca_tpu_torch.comm.gather_stream`)."""
+    stream = _widen_div_int(_normalize_roi(gather_stream(stream)))
     folded = _folds_color(stream, 0)
     x = _inverse(stream, 0, emit_u8 and (stream.color == "none" or folded), recon_offset)
     if not folded:
@@ -428,7 +430,7 @@ def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False
         raise ValueError(f"target_level must be in [0, {stream.levels}]")
     if target_level == 0:
         return decode(stream, emit_u8=emit_u8, recon_offset=recon_offset)
-    stream = _widen_div_int(_normalize_roi(stream))
+    stream = _widen_div_int(_normalize_roi(gather_stream(stream)))
     h, w = stream.orig_shape
     folded = _folds_color(stream, target_level)
     x = _inverse(stream, target_level, emit_u8 and folded, recon_offset)
@@ -443,6 +445,7 @@ def icon_from_stream(stream: CodeStream) -> torch.Tensor:
     uint8, or uint16 for high-bit-depth streams); a color-transformed
     stream's LL gets the inverse rotation first. ROI coding never touches
     the LL, so an ROI stream gives its plain stream's icon."""
+    stream = gather_stream(stream)
     return _emit_native(stream, _undo_color(stream, stream.ll))
 
 
@@ -528,6 +531,7 @@ def decode_region(stream: CodeStream, row0: int, row1: int, col0: int, col1: int
     (:func:`region_plan`); global-layout streams add a ``16 * 2**levels``
     halo that covers the inverse cascade (exact for the integer wavelets;
     the float ones match the full decode to float32 rounding)."""
+    stream = gather_stream(stream)
     H, W = stream.orig_shape
     if not (0 <= row0 < row1 <= H and 0 <= col0 < col1 <= W):
         raise ValueError(f"region [{row0}:{row1}, {col0}:{col1}) outside image {(H, W)}")

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch._device import host_data_device
+from wicca_tpu_torch.comm import gather_stream
 from wicca_tpu_torch.utils.ema import RateEMA
 
 _PROBE_BYTES = 1 << 26
@@ -117,7 +118,9 @@ def _rebuild(stream, planes):
 def fetch_stream(stream):
     """A stream on a card -> the same stream with pinned CPU tensors, bit
     for bit (one pinned copy per plane, one wait on the copy's own event).
-    A stream already on the host is returned as it is."""
+    A stream already on the host is returned as it is; a mesh stream is
+    gathered first (:func:`~wicca_tpu_torch.comm.gather_stream`)."""
+    stream = gather_stream(stream)
     planes = _planes(stream)
     if all(p.device.type == "cpu" for p in planes):
         return stream
