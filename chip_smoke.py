@@ -141,6 +141,19 @@ Phases, each fatal on failure:
       and one step against the single-device step; then
       ``dryrun_multichip(4)``, four gloo ranks sharing the card, each
       rank's K2/K3/K6/K7 launches checked (:func:`phase_mesh`);
+   n. code written against the reference, through ``wicca_tpu_torch.compat``
+      (:func:`phase_reference_code`): seeded MobileNetV2 and ResNet50 written
+      as the JAX package's ``.msgpack`` weight files and as ``.pt``, loaded
+      by ``compat.data_loader.load_models`` (the same weights and logits bit
+      for bit); ``HaarCoder().get_small_copy`` of the bench frame's HWC view
+      (K1 once, bit-exact to the CPU) and ``get_padded_copy`` of its numpy
+      and its tensor on the card in every border mode;
+      ``compat.classifying_tools.ClassifierProcessor`` on two of phase i's
+      frames with MobileNetV2 from the ``.msgpack`` (the CSVs of the ``.pt``
+      run byte for byte); where matplotlib and seaborn are installed, the
+      five plots and ``show_image_vs_icon`` (K1 three times); always
+      ``examples/demo_torch.py`` in a process of its own (K1, K2, K3, K6
+      and K7, each count exact);
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
@@ -316,6 +329,22 @@ def check_pairs(pairs: dict) -> dict:
             check_equal(what, got, want)
         max_abs_err[name] = max((got.double() - want.double()).abs().max().item() for _, got, want in checks)
     return max_abs_err
+
+
+def counted(what: str, want: dict, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counters set to 0 just before and
+    read just after; fails unless the launches are exactly ``want``. Returns
+    the result and the wall seconds (the card synchronized)."""
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if launches != want:
+        raise AssertionError(f"{what}: launched {launches}, expected {want}")
+    return out, wall
 
 
 # ---------------------------------------------------------------------------
@@ -2268,22 +2297,14 @@ def seeded_frame(shape, seed: int, dev) -> torch.Tensor:
 
 
 def mesh_call(rows: list, what: str, want: dict, fn, *args, **kw):
-    """``fn(*args, **kw)`` with this rank's launch and halo counters set to 0
-    just before and read just after, its wall time (the card synchronized);
-    fails unless the launches are exactly ``want``."""
+    """``fn(*args, **kw)`` under :func:`counted` with this rank's halo
+    counters set to 0 just before; its row (wall time, launches, halo
+    exchanges) goes to ``rows``."""
     from wicca_tpu_torch.parallel.halo import HALO, reset_halo_counts
 
-    reset_all_launches()
     reset_halo_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(*args, **kw)
-    torch.cuda.synchronize()
-    row = {"call": what, "wall_s": time.perf_counter() - t0,
-           "launches": {k: v for k, v in launch_counts().items() if v}, "halo": dict(HALO)}
-    if row["launches"] != want:
-        raise AssertionError(f"{what}: launched {row['launches']}, expected {want}")
-    rows.append(row)
+    out, wall = counted(what, want, fn, *args, **kw)
+    rows.append({"call": what, "wall_s": wall, "launches": want, "halo": dict(HALO)})
     return out
 
 
@@ -2647,6 +2668,306 @@ def phase_mesh(tmp, seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: code written against the reference, on the card, through
+# wicca_tpu_torch.compat; the JAX package's weight files; the plots (after
+# phase 3's counters are read; each part counts its own launches)
+# ---------------------------------------------------------------------------
+
+WEIGHT_MODELS = ("MobileNetV2", "ResNet50")  # the flagship at width 1.0, and the zoo's largest CNN file
+PLOT_MODULES = ("matplotlib", "seaborn")
+BORDERS = ("constant", "replicate", "reflect", "wrap", "reflect101")
+
+
+def write_weight_dirs(tmp, seed: int) -> tuple:
+    """Seeded MobileNetV2 and ResNet50 at 224x224 written twice: as the JAX
+    package's ``<name>.msgpack`` (flax's bytes of their Flax variables, by
+    ``models/flax_msgpack.write``) in one directory, and as ``<name>.pt``
+    state dicts in another. Returns both directories, the source state
+    dicts and each file's size and read time."""
+    from wicca_tpu_torch.models import flax_msgpack, interop, nets, registry
+
+    mp_dir, pt_dir = tmp / "weights_msgpack", tmp / "weights_pt"
+    mp_dir.mkdir()
+    pt_dir.mkdir()
+    sources, files = {}, {}
+    for i, name in enumerate(WEIGHT_MODELS):
+        module = nets.init_weights(registry.build(name, MODEL_SHAPE), torch.Generator().manual_seed(seed + 101 + i))
+        sources[name] = module.state_dict()
+        data = flax_msgpack.write(interop.to_flax_variables(module))
+        (mp_dir / f"{name}.msgpack").write_bytes(data)
+        torch.save(sources[name], pt_dir / f"{name}.pt")
+        t0 = time.perf_counter()
+        flax_msgpack.read((mp_dir / f"{name}.msgpack").read_bytes())
+        read_s = time.perf_counter() - t0
+        files[name] = {"MB": len(data) / 1e6, "read_s": read_s, "read_MBps": len(data) / 1e6 / read_s}
+    return mp_dir, pt_dir, sources, files
+
+
+def load_from(weights_dir, dev):
+    """``compat.data_loader.load_models`` of WEIGHT_MODELS with
+    ``WICCA_TPU_WEIGHTS=weights_dir``, and its seconds."""
+    from wicca_tpu_torch.compat import data_loader
+
+    os.environ["WICCA_TPU_WEIGHTS"] = str(weights_dir)
+    try:
+        t0 = time.perf_counter()
+        zoo = data_loader.load_models({n: (n, {"shape": MODEL_SHAPE}) for n in WEIGHT_MODELS}, device=dev)
+        return zoo, time.perf_counter() - t0
+    finally:
+        del os.environ["WICCA_TPU_WEIGHTS"]
+
+
+def reference_harness(src, out, clf: dict, dev) -> dict:
+    """``compat.classifying_tools.ClassifierProcessor`` on ``src`` with one
+    classifier; its run metrics per depth."""
+    from wicca_tpu_torch.compat.classifying_tools import ClassifierProcessor
+
+    proc = ClassifierProcessor(src, transform_depth=HARNESS_DEPTHS, results_folder=out, log_info=False, device=dev)
+    res = proc.process_classifiers(clf)
+    if set(res) != set(clf):
+        raise AssertionError(f"the compat harness gave no result for {sorted(set(clf) - set(res))}")
+    return {d: json.loads((out / f"depth-{d}" / "run-metrics.json").read_text()) for d in HARNESS_DEPTHS}
+
+
+def drawn(fig) -> list:
+    """The image arrays a figure draws, axis by axis."""
+    return [np.asarray(im.get_array()) for ax in fig.axes for im in ax.images]
+
+
+def phase_reference_code(tmp, src, two: list, bench_frame: np.ndarray, card: str, dev, seed: int) -> dict:
+    """Phase 3n, each check fatal, every launch count exact:
+    a. the JAX package's weight files on the card: seeded MobileNetV2 and
+       ResNet50 (224x224) written as ``<name>.msgpack`` (the writer of
+       ``models/flax_msgpack.py``, flax's bytes) in a directory without
+       ``.pt`` and as ``.pt`` in another, each loaded with
+       ``compat.data_loader.load_models``: the state dicts equal the source
+       bit for bit, and the logits of a seeded batch of 6 from the
+       ``.msgpack`` equal those from the ``.pt`` bit for bit; no launch;
+    b. ``compat.wavelet_coder.HaarCoder().get_small_copy(hwc, 5)`` on the
+       bench frame's HWC view: one K1 launch, bit-exact to ``device='cpu'``;
+       ``get_padded_copy`` of that numpy view (on the card by the device
+       rule, numpy back) and of its tensor on the card, each equal to
+       ``device='cpu'`` in every border mode; no launch;
+    c. ``compat.classifying_tools.ClassifierProcessor`` on the 3x8704x6144
+       and the 3x4000x6000 frame of phase 3i's folder, depths 3 and 5,
+       MobileNetV2 from the ``.msgpack`` directory, the icon route forced to
+       the device: K1 as the bucket groups say, the CSVs equal byte for byte
+       to the same run with the ``.pt`` directory's MobileNetV2;
+    d. where ``importlib.util.find_spec`` finds matplotlib and seaborn: the
+       five ``compat.visualization`` plots (Agg) on c's comparison, saved
+       as PNG; ``show_image_vs_icon`` on the 3x4000x6000 frame at depths
+       (2, 4, 6): exactly 3 K1 launches, the icons drawn equal to
+       ``device='cpu'``. Without them this part is skipped and says so.
+       Then, whatever was found, ``examples/demo_torch.py`` in a process of
+       its own (:func:`run_demo`): exit code 0 and its launches exactly
+       :func:`demo_launches_expected` (the demo skips its own plots where
+       the packages are missing)."""
+    import importlib.util
+    import shutil
+
+    from wicca_tpu_torch.compat import data_loader, wavelet_coder
+    from wicca_tpu_torch.config.constants import MODEL, PRE_INP
+
+    out: dict = {}
+    # a. JAX weight files
+    t0 = time.perf_counter()
+    mp_dir, pt_dir, sources, files = write_weight_dirs(tmp, seed)
+    (zoo_mp, mp_s), _ = counted("load_models from .msgpack", {}, load_from, mp_dir, dev)
+    zoo_pt, pt_s = load_from(pt_dir, dev)
+    batch = np.random.default_rng(seed + 7).uniform(0, 255, (6, *MODEL_SHAPE, 3)).astype(np.float32)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same convolution algorithms for both loads
+    try:
+        for name in WEIGHT_MODELS:
+            if zoo_mp[name] is None or zoo_pt[name] is None:
+                raise AssertionError(f"{name}: load_models gave None")
+            got = zoo_mp[name][MODEL].module.state_dict()
+            for k, v in sources[name].items():
+                if not torch.equal(got[k].cpu(), v):
+                    raise AssertionError(f"{name}: {k} read from the .msgpack differs from the source")
+            x = zoo_mp[name][PRE_INP](batch)
+            a, _ = counted(f"{name} logits", {}, zoo_mp[name][MODEL], x)
+            b = zoo_pt[name][MODEL](x)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: logits from the .msgpack differ from the .pt's by "
+                                     f"{np.abs(a - b).max()}")
+            files[name]["logits_absmax"] = float(np.abs(a).max())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["weights"] = {"files": files, "load_models_msgpack_s": mp_s, "load_models_pt_s": pt_s,
+                      "s": time.perf_counter() - t0}
+    for name, f in files.items():
+        print(f"phase 3n [{card}]: (a) {name}.msgpack {f['MB']:.2f} MB read in {f['read_s']:.4f} s "
+              f"({f['read_MBps']:.1f} MB/s); state dict equal to the source, logits of 6 images equal the .pt's bit "
+              f"for bit", flush=True)
+    print(f"phase 3n [{card}]: (a) load_models of {WEIGHT_MODELS} on the card: .msgpack {mp_s:.2f} s, .pt "
+          f"{pt_s:.2f} s ({out['weights']['s']:.1f} s)", flush=True)
+
+    # b. the reference's icon and padding
+    t0 = time.perf_counter()
+    hwc = np.moveaxis(bench_frame, 0, -1)
+    icon, icon_s = counted("HaarCoder.get_small_copy", {"icon": 1}, wavelet_coder.HaarCoder().get_small_copy, hwc, 5)
+    want = wavelet_coder.HaarCoder().get_small_copy(hwc, 5, device="cpu")
+    if not (isinstance(icon, np.ndarray) and icon.dtype == np.uint8 and np.array_equal(icon, want)):
+        raise AssertionError("compat HaarCoder: the card's icon differs from device='cpu'")
+    on_card = torch.from_numpy(np.ascontiguousarray(hwc)).to(dev)
+    pad_s = []
+    for border in BORDERS:
+        ref = data_loader.get_padded_copy(hwc, 100, border, 9, device="cpu")
+        got, wall = counted(f"get_padded_copy {border} (numpy)", {}, data_loader.get_padded_copy, hwc, 100, border, 9)
+        if not (isinstance(got, np.ndarray) and np.array_equal(got, ref)):
+            raise AssertionError(f"get_padded_copy {border}: the numpy copy padded on the card differs from the CPU's")
+        pad_s.append(wall)
+        got, _ = counted(f"get_padded_copy {border} (tensor)", {}, data_loader.get_padded_copy, on_card, 100, border, 9)
+        if not (got.device.type == dev.type and np.array_equal(got.cpu().numpy(), ref)):
+            raise AssertionError(f"get_padded_copy {border}: the card's copy differs from the CPU's")
+    del on_card
+    out["icon"] = {"shape": list(icon.shape), "call_s": icon_s, "pad_numpy_s": pad_s, "s": time.perf_counter() - t0}
+    print(f"phase 3n [{card}]: (b) compat HaarCoder().get_small_copy({tuple(hwc.shape)}, 5) -> {icon.shape}, K1 1, "
+          f"{icon_s:.4f} s a call, bit-exact to device='cpu'; get_padded_copy to a multiple of 100 "
+          f"{tuple(ref.shape)} of the numpy view ({min(pad_s):.4f}-{max(pad_s):.4f} s a call, numpy back) and of its "
+          f"tensor, on the card, equal to device='cpu' in {len(BORDERS)} border modes ({out['icon']['s']:.1f} s)",
+          flush=True)
+
+    # c. the harness through compat, MobileNetV2 from the .msgpack
+    t0 = time.perf_counter()
+    ref_src = tmp / "reference_src"
+    ref_src.mkdir()
+    for f in ("frame0.png", "frame4.png"):
+        shutil.copy(src / f, ref_src / f)
+    want_k1 = {"icon": sum(icon_launches_expected(two, d) for d in HARNESS_DEPTHS)}
+    os.environ["WICCA_TPU_ICON_PATH"] = "device"
+    try:
+        runs = {}
+        for tag, zoo in (("msgpack", zoo_mp), ("pt", zoo_pt)):
+            metrics, wall = counted(f"compat harness ({tag})", want_k1, reference_harness, ref_src,
+                                    tmp / f"reference_res_{tag}", {"MobileNetV2": zoo["MobileNetV2"]}, dev)
+            runs[tag] = {"wall_s": wall, "metrics": metrics}
+            print(f"phase 3n [{card}]: (c) compat ClassifierProcessor, MobileNetV2 from .{tag}, 2 frames: {wall:.2f} s, "
+                  f"launches {json.dumps(want_k1)}; per depth "
+                  + "; ".join(f"{d}: {m['megapixels_per_s']} MP/s over {m['wall_s']} s, stages "
+                              f"{json.dumps(m['stage_seconds'])}" for d, m in metrics.items()), flush=True)
+        for d in HARNESS_DEPTHS:
+            for f in (f"MobileNetV2-depth-{d}.csv", f"MobileNetV2-summary-depth-{d}.csv"):
+                if (tmp / "reference_res_msgpack" / f"depth-{d}" / f).read_bytes() != (
+                        tmp / "reference_res_pt" / f"depth-{d}" / f).read_bytes():
+                    raise AssertionError(f"{f}: the .msgpack run's CSV differs from the .pt run's")
+        out["harness"] = {"runs": runs, "launches": want_k1, "s": time.perf_counter() - t0}
+        print(f"phase 3n [{card}]: (c) CSVs of the .msgpack and the .pt run equal byte for byte "
+              f"({out['harness']['s']:.1f} s)", flush=True)
+
+        # d. the plots, where their packages are installed
+        found = {m: importlib.util.find_spec(m) is not None for m in PLOT_MODULES}
+        out["plots"] = {"found": found}
+        print(f"phase 3n [{card}]: (d) find_spec: {json.dumps(found)}", flush=True)
+        if all(found.values()):
+            t0 = time.perf_counter()
+            out["plots"].update(plots_on_the_card(tmp, two[1], dev))
+            out["plots"]["s"] = time.perf_counter() - t0
+            print(f"phase 3n [{card}]: (d) {json.dumps(out['plots'])}", flush=True)
+        else:
+            print(f"phase 3n [{card}]: (d) plots skipped: " + ", ".join(m for m, ok in found.items() if not ok)
+                  + " not installed", flush=True)
+        out["demo"] = run_demo(tmp / "demo", all(found.values()))
+        print(f"phase 3n [{card}]: (d) examples/demo_torch.py in its own process: exit 0, "
+              f"{out['demo']['s']:.1f} s, launches {json.dumps(out['demo']['launches'])} as expected "
+              f"(plots {'drawn' if all(found.values()) else 'skipped'})", flush=True)
+    finally:
+        del os.environ["WICCA_TPU_ICON_PATH"]
+    del zoo_mp, zoo_pt
+    return out
+
+
+def plots_on_the_card(tmp, frame4: np.ndarray, dev) -> dict:
+    """Phase 3n d, the plots (see :func:`phase_reference_code`)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from wicca_tpu_torch.compat import result_manager, visualization
+    from wicca_tpu_torch.config.constants import SIM_BEST_CLASS, SIM_CLASSES_PERC
+
+    img = np.ascontiguousarray(np.moveaxis(frame4, 0, -1))
+    fig, wall = counted("show_image_vs_icon", {"icon": 3}, visualization.show_image_vs_icon, img, (2, 4, 6))
+    want = visualization.show_image_vs_icon(img, (2, 4, 6), device="cpu")
+    if not all(np.array_equal(a, b) for a, b in zip(drawn(fig), drawn(want), strict=True)):
+        raise AssertionError("show_image_vs_icon: the card's icons differ from device='cpu'")
+    plots = tmp / "plots"
+    plots.mkdir()
+    fig.savefig(plots / "image_vs_icon.png", dpi=80)
+    comp = result_manager.compare_summaries(tmp / "reference_res_msgpack", ["MobileNetV2"], HARNESS_DEPTHS)
+    visualization.show_icon_on_image(img, 4).savefig(plots / "icon_on_image.png", dpi=80)
+    visualization.visualize_comparison(comp, SIM_CLASSES_PERC).savefig(plots / "heatmap.png", dpi=80)
+    names, vals = result_manager.extract_from_comparison(comp, SIM_CLASSES_PERC)
+    for tag, f in (("radar", visualization.plot_metric_radar([f"{n} d{d}" for n, d in zip(names, comp["Depth"])],
+                                                               vals)),
+                   ("scatter", visualization.plot_compare_metrics(comp, SIM_CLASSES_PERC, SIM_BEST_CLASS)),
+                   ("scatter_reference", visualization.plot_compare_metrics(
+                       names, vals, result_manager.extract_from_comparison(comp, SIM_BEST_CLASS)[1]))):
+        if hasattr(f, "savefig"):
+            f.savefig(plots / f"{tag}.png", dpi=80)
+    plt.close("all")
+    return {"show_image_vs_icon_s": wall, "pngs": sorted(p.name for p in plots.iterdir())}
+
+
+# runs a script as ``__main__`` and prints, after it, the launches the
+# process made: the counters start at 0 when the ops modules are imported
+DEMO_RUNNER = """
+import json, runpy, sys
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+    code = 0
+except SystemExit as e:
+    code = e.code
+print("launches " + json.dumps({**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES}))
+sys.exit(code)
+"""
+DEMO_FRAMES, DEMO_SHAPE, DEMO_DEPTHS, DEMO_LEVELS = 8, (3, 768, 1024), (2, 3, 4), 5  # examples/demo_torch.py
+
+
+def demo_launches_expected(plots: bool) -> dict:
+    """The launches of ``examples/demo_torch.py`` on the card, the icon
+    route forced to the device: K1 for the harness's icon batches (and 3 +
+    1 for its two icon plots), one K2 and K3 per fused pass of its Haar
+    codec's levels, and one K6 and K7 per level of its ``legall5.3`` +
+    ``rct`` codec (the wrappers launch a level at a time)."""
+    from types import SimpleNamespace
+
+    from wicca_tpu_torch.codec.pipeline import _pass_sizes
+
+    frames = [SimpleNamespace(shape=DEMO_SHAPE)] * DEMO_FRAMES
+    passes = len(_pass_sizes(DEMO_LEVELS))
+    return {"icon": sum(icon_launches_expected(frames, d) for d in DEMO_DEPTHS) + (4 if plots else 0),
+            "dwt_multilevel_quant": passes, "idwt_multilevel_dequant": passes,
+            "dwt53_multilevel": DEMO_LEVELS, "idwt53_multilevel": DEMO_LEVELS}
+
+
+def run_demo(out, plots: bool) -> dict:
+    """Phase 3n d: ``examples/demo_torch.py`` as one process on the card
+    (through :data:`DEMO_RUNNER`); fails unless it exits 0 and launched
+    exactly :func:`demo_launches_expected`."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    demo = subprocess.run([sys.executable, "-c", DEMO_RUNNER, str(root / "examples" / "demo_torch.py"), str(out)],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if demo.returncode != 0:
+        raise AssertionError(f"examples/demo_torch.py exited {demo.returncode}:\n{demo.stdout[-2000:]}\n"
+                             f"{demo.stderr[-3000:]}")
+    lines = [ln for ln in demo.stdout.splitlines() if ln.startswith("launches ")]
+    launches = {k: v for k, v in json.loads(lines[-1][len("launches "):]).items() if v}
+    want = demo_launches_expected(plots)
+    if launches != want:
+        raise AssertionError(f"examples/demo_torch.py launched {launches}, expected {want}")
+    return {"s": wall, "launches": launches}
+
+
 def print_folder(folder: dict, card: str, cpu: str, t0: float) -> None:
     st = folder["stages"]
     print(f"phase 3i [{card}; host {cpu}]: one 3x{H}x{W} frame, encode: load {st['load_s']:.3f} s, H2D "
@@ -2797,17 +3118,23 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         commands = phase_cli(Path(tmp), Path(tmp) / "src", frames, card, torch.device("cuda"), args.seed, args.reps)
         print(f"phase 3l [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
+        two = [frames[0], frames[4]]  # a 3x8704x6144 and the 3x4000x6000 frame, for phase 3n
         del frames
         t0 = time.perf_counter()
         mesh = phase_mesh(Path(tmp), args.seed, card)
         print(f"phase 3m [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        reference = phase_reference_code(Path(tmp), Path(tmp) / "src", two, frame, card, torch.device("cuda"),
+                                         args.seed)
+        print(f"phase 3n [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for r in rows:
         print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
               f"call {r['call_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  {r['bytes'] / 1e6:.1f} MB  "
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc,
-            "folder": folder, "harness": harness, "train": train, "cli": commands, "mesh": mesh}
+            "folder": folder, "harness": harness, "train": train, "cli": commands, "mesh": mesh,
+            "reference": reference}
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

@@ -137,12 +137,13 @@ def test_coverage_check_catches_missing_modules(monkeypatch):
 
 
 def test_converted_file_drives_the_registry(tmp_path, monkeypatch):
-    """``convert_h5`` writes ``<arch>.pt``; ``WICCA_TPU_WEIGHTS`` points the
-    registry at it; an unreadable file gives None (logged)."""
+    """``convert_h5`` writes ``<arch>.msgpack``, the JAX converter's file;
+    ``WICCA_TPU_WEIGHTS`` points the registry at it; an unreadable file
+    gives None (logged)."""
     arch = "MobileNetV2"
     _, layers, h5 = _synthetic(arch, tmp_path)
     out = cw.convert_h5(arch, h5, tmp_path / "weights")
-    assert out == tmp_path / "weights" / f"{arch}.pt"
+    assert out == tmp_path / "weights" / f"{arch}.msgpack"
     monkeypatch.setenv("WICCA_TPU_WEIGHTS", str(tmp_path / "weights"))
     info = load_single_model(arch, shape=(64, 64), device="cpu")
     kern = info[MODEL].module.get_submodule("_ConvBN_0.Conv_0").weight.detach().numpy()
@@ -153,3 +154,25 @@ def test_converted_file_drives_the_registry(tmp_path, monkeypatch):
     assert logits.shape == (1, 1000) and np.isfinite(logits).all()
     (tmp_path / "weights" / "ResNet50.pt").write_bytes(b"not a state dict")
     assert load_single_model("ResNet50", shape=(32, 32), device="cpu") is None
+
+
+@pytest.mark.parametrize("arch", ["MobileNetV2", "ResNet50"])
+def test_msgpack_output_is_the_jax_converters_file(arch, tmp_path, monkeypatch):
+    """``convert_h5`` writes the file the JAX converter
+    writes for the same H5: flax restores it to the JAX package's mapped
+    tree leaf for leaf (the template here comes from ``eval_shape``, whose
+    dicts are key-sorted, so the bytes are compared after a restore), and
+    the port's registry reads it back to ``map_weights``' state dict."""
+    from flax import serialization
+
+    variables, _, h5 = _synthetic(arch, tmp_path)
+    out = cw.convert_h5(arch, h5, tmp_path / "weights")
+    jtree, _ = jcw.map_weights(arch, jcw.read_keras_h5(h5), variables)
+    restored = serialization.msgpack_restore(out.read_bytes())
+    assert jax.tree.structure(restored) == jax.tree.structure(jtree)
+    for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jtree), strict=True):
+        assert a.dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    monkeypatch.setenv("WICCA_TPU_WEIGHTS", str(tmp_path / "weights"))
+    got = load_single_model(arch, device="cpu")[MODEL].module.state_dict()
+    want, _ = cw.map_weights(arch, cw.read_keras_h5(h5), build(arch))
+    assert list(got) == list(want) and all(torch.equal(got[k], v) for k, v in want.items())

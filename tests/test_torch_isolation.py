@@ -58,7 +58,14 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
                  "wicca_tpu_torch.comm", "wicca_tpu_torch.parallel.mesh", "wicca_tpu_torch.parallel.layout",
                  "wicca_tpu_torch.parallel.halo", "wicca_tpu_torch.parallel.tiled", "wicca_tpu_torch.parallel.codec",
                  "wicca_tpu_torch.parallel.batch", "wicca_tpu_torch.parallel.model_parallel",
-                 "wicca_tpu_torch.parallel.scaling", "wicca_tpu_torch.parallel.launch"):
+                 "wicca_tpu_torch.parallel.scaling", "wicca_tpu_torch.parallel.launch",
+                 "wicca_tpu_torch.models.flax_msgpack", "wicca_tpu_torch.viz", "wicca_tpu_torch.viz.plots",
+                 "wicca_tpu_torch.compat", "wicca_tpu_torch.compat.classifying_tools",
+                 "wicca_tpu_torch.compat.data_loader", "wicca_tpu_torch.compat.normalization",
+                 "wicca_tpu_torch.compat.result_manager", "wicca_tpu_torch.compat.validation",
+                 "wicca_tpu_torch.compat.visualization", "wicca_tpu_torch.compat.wavelet_coder",
+                 "wicca_tpu_torch.compat.config", "wicca_tpu_torch.compat.config.aliases",
+                 "wicca_tpu_torch.compat.config.constants"):
         assert name in res["modules"]
 
 
@@ -102,7 +109,7 @@ def test_host_libraries_build_from_the_port_alone(lib, flags, libs, tmp_path, mo
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "wicca_tpu_torch").rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "examples/demo_torch.py"])
 def test_no_jax_import_lines(path):
     for line in (ROOT / path).read_text().splitlines():
         s = line.strip()
@@ -377,3 +384,16 @@ def test_mesh_on_the_card():
         assert r["healthy"] and r["stream"] and r["decode"] and r["icon"]
         assert r["launches"]["dwt_multilevel_quant"] == 1 and r["launches"]["idwt_multilevel_dequant"] == 1
         assert r["launches"]["icon"] == 1
+
+
+def test_the_codec_path_does_not_load_the_model_zoo():
+    """``import wicca_tpu_torch`` (the codec's path) leaves the model zoo
+    unloaded; ``wicca_tpu_torch.data``'s registry names load it on first
+    access."""
+    probe = ("import json, sys, wicca_tpu_torch, wicca_tpu_torch.data as d\n"
+             "before = sorted(m for m in sys.modules if m.startswith('wicca_tpu_torch.models'))\n"
+             "from wicca_tpu_torch.models import registry\n"
+             "print(json.dumps({'before': before, 'same': d.load_models is registry.load_models}))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"before": [], "same": True}

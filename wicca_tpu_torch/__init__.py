@@ -1,6 +1,6 @@
 """wicca_tpu_torch — the PyTorch/CUDA port of wicca_tpu for NVIDIA Hopper.
 
-So far it holds the Haar icon path, the 8-bit Haar codec, the lossless
+It holds the Haar icon path, the 8-bit Haar codec, the lossless
 8-bit codec (LeGall 5/3 and integer Haar lifting, the reversible color
 transform), the lossy float codec (CDF 9/7 and db2 lifting, the
 irreversible color transform), the whole-image lifting path of registered
@@ -23,7 +23,11 @@ and the mesh on ``torch.distributed`` (:mod:`wicca_tpu_torch.parallel`: a
 ``DeviceMesh`` over ``(data, ty, tx)``, tiled icons and transforms with
 halo exchange, the tiled codec on the pass kernels per shard, the
 data-parallel batched codec, tp/pp/ep, and ``run_world`` for a world of
-local processes; imported on its own, not by this package). The wavelet work runs in
+local processes; imported on its own, not by this package), the reference's
+plots (:mod:`wicca_tpu_torch.viz`) and its module layout
+(:mod:`wicca_tpu_torch.compat`, for code written against the reference).
+The zoo reads the JAX package's ``.msgpack`` weight files
+(:mod:`wicca_tpu_torch.models.flax_msgpack`). The wavelet work runs in
 hand-written CUDA kernels (``csrc/``, K1-K9), built with nvcc at first use;
 every kernel has a plain PyTorch twin that the CPU runs. The classifiers'
 convolutions and matmuls are PyTorch's, as the JAX package leaves them to

@@ -64,7 +64,7 @@ from wicca_tpu_torch._device import host_data_device
 from wicca_tpu_torch.codec.pipeline import CodeStream
 from wicca_tpu_torch.comm import gather_stream
 from wicca_tpu_torch.core.quant import QuantSpec
-from wicca_tpu_torch.native.rice import rc_decode, rc_encode, rice_decode, rice_encode
+from wicca_tpu_torch.native.rice import native_available, rc_decode, rc_encode, rice_decode, rice_encode  # noqa: F401
 
 _MAGIC, _MAGIC_V5, _MAGIC_V6, _MAGIC_V7 = b"WCT4", b"WCT5", b"WCT6", b"WCT7"
 _MAGIC_V8, _MAGIC_V9, _MAGIC_V10 = b"WCT8", b"WCT9", b"WC10"

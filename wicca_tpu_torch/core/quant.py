@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from wicca_tpu_torch.core.haar import Pyramid
+
 
 def quantize_deadzone(c: torch.Tensor, step: float, dtype=torch.int32) -> torch.Tensor:
     """Uniform deadzone quantizer: q = sign(c) * floor(|c| / step)."""
@@ -58,3 +60,23 @@ class QuantSpec:
         band triples throughout the codec."""
         s = self.detail_step(level)
         return (s, s, s * self.hh_gain)
+
+
+def quantize_pyramid(pyr: Pyramid, spec: QuantSpec) -> Pyramid:
+    """Quantize a float pyramid to integer codes (same Pyramid structure)."""
+    details = tuple(
+        tuple(quantize_deadzone(b, s, spec.coeff_dtype) for b, s in zip(bands, spec.band_steps(lvl + 1)))
+        for lvl, bands in enumerate(pyr.details)
+    )
+    ll = quantize_midtread(pyr.ll, spec.ll_step, spec.coeff_dtype)
+    return Pyramid(ll=ll, details=details, wavelet=pyr.wavelet, orig_shape=pyr.orig_shape)
+
+
+def dequantize_pyramid(pyr: Pyramid, spec: QuantSpec) -> Pyramid:
+    """The float pyramid of :func:`quantize_pyramid`'s codes."""
+    details = tuple(
+        tuple(dequantize_deadzone(b, s) for b, s in zip(bands, spec.band_steps(lvl + 1)))
+        for lvl, bands in enumerate(pyr.details)
+    )
+    ll = dequantize_midtread(pyr.ll, spec.ll_step)
+    return Pyramid(ll=ll, details=details, wavelet=pyr.wavelet, orig_shape=pyr.orig_shape)

@@ -7,7 +7,9 @@ h5py, no TensorFlow) is bound through the JAX package's schemas — the
 ordered ``(keras_layer_name, flax_param_path, kind)`` triples, copied here —
 onto the Flax-path tree of a port model (:func:`wicca_tpu_torch.models.
 interop.to_flax_variables`), and carried into a state dict by
-:func:`wicca_tpu_torch.models.interop.carry`. So a file gives the port the
+:func:`wicca_tpu_torch.models.interop.carry` (:func:`map_weights`) or
+written as the JAX converter's ``.msgpack`` (:func:`convert_h5`). So a file
+gives the port the
 weights it gives the JAX zoo, leaf for leaf, with the same errors for a
 missing layer, a shape mismatch or an uncovered module.
 
@@ -28,7 +30,6 @@ import logging
 from pathlib import Path
 
 import numpy as np
-import torch
 from torch import nn
 
 # weight kinds
@@ -416,26 +417,38 @@ def map_weights(arch: str, keras_weights: dict[str, list[np.ndarray]], model: nn
     ``model.load_state_dict(strict=True)`` takes, and the JAX package's
     report. Raises on any shape mismatch, missing schema layer, or module
     left uncovered."""
-    from wicca_tpu_torch.models.interop import carry, to_flax_variables
+    from wicca_tpu_torch.models.interop import carry
 
-    if arch not in SCHEMAS:
-        raise ValueError(f"no conversion schema for {arch!r}; have {sorted(SCHEMAS)}")
-    tree, report = _bind(arch, keras_weights, to_flax_variables(model))
+    tree, report = _flax_tree(arch, keras_weights, model)
     return carry(tree, model), report
 
 
+def _flax_tree(arch: str, keras_weights: dict[str, list[np.ndarray]], model: nn.Module) -> tuple[dict, dict]:
+    """The Keras weights bound onto ``model``'s Flax-layout variables, and
+    the report (see :func:`map_weights`)."""
+    from wicca_tpu_torch.models.interop import to_flax_variables
+
+    if arch not in SCHEMAS:
+        raise ValueError(f"no conversion schema for {arch!r}; have {sorted(SCHEMAS)}")
+    return _bind(arch, keras_weights, to_flax_variables(model))
+
+
 def convert_h5(arch: str, h5_path: str | Path, out_dir: str | Path) -> Path:
-    """Keras H5 weights -> ``<out_dir>/<arch>.pt`` (a state dict) for the
-    registry (:func:`wicca_tpu_torch.models.registry.load_single_model` with
+    """Keras H5 weights -> ``<out_dir>/<arch>.msgpack``, the file
+    ``wicca_tpu.models.convert.convert_h5`` writes (flax's bytes of the
+    model's variables, by :func:`wicca_tpu_torch.models.flax_msgpack.write`),
+    which both packages' registries read
+    (:func:`wicca_tpu_torch.models.registry.load_single_model` with
     ``WICCA_TPU_WEIGHTS=<out_dir>``), for the model at 224x224."""
+    from wicca_tpu_torch.models import flax_msgpack
     from wicca_tpu_torch.models.registry import build
 
-    state, report = map_weights(arch, read_keras_h5(h5_path), build(arch))
+    tree, report = _flax_tree(arch, read_keras_h5(h5_path), build(arch))
     if report["unexpected_keras_layers"]:
         logging.warning(f"{arch}: unmapped keras layers {report['unexpected_keras_layers']}")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"{arch}.pt"
-    torch.save(state, out)
+    out = out_dir / f"{arch}.msgpack"
+    out.write_bytes(flax_msgpack.write(tree))
     logging.info(f"{arch}: converted {report['converted']} layers -> {out}")
     return out

@@ -43,6 +43,14 @@ def _leaves(tree, prefix=()):
             yield (*prefix, k), v
 
 
+def _float32(value) -> np.ndarray:
+    """A leaf as float32 numpy (a bfloat16 tensor, as a weights file gives
+    it, widened exactly)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(value, dtype=np.float32)
+
+
 def _to_torch(module: nn.Module, parent: nn.Module | None, name: str, col: str, leaf: str, a: np.ndarray):
     """(state dict leaf, array in the port's layout) of one Flax leaf."""
     if isinstance(module, (nets.BatchNorm, nets.LayerNorm)):
@@ -78,7 +86,7 @@ def carry(variables, template: nn.Module) -> dict[str, torch.Tensor]:
             parent = modules[".".join(path[:-2])] if len(path) > 1 else None
             try:
                 leaf, arr = _to_torch(modules[mpath], parent, path[-2] if len(path) > 1 else "", col, path[-1],
-                                      np.asarray(value, dtype=np.float32))
+                                      _float32(value))
             except KeyError as e:
                 raise ValueError(f"flax {col}/{'/'.join(path)}: no counterpart ({e})") from None
             key = f"{mpath}.{leaf}" if mpath else leaf

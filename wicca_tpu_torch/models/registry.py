@@ -5,16 +5,21 @@ contract, ``{MODEL, PRE_INP, DEC_PRED, SHAPE}``, where MODEL is a callable
 NHWC float32 batch -> float32 logits (numpy in, numpy out). The zoo models
 (:mod:`wicca_tpu_torch.models.nets`) run on ``device``: CUDA unless the
 caller passes ``device='cpu'``; with no card and no explicit CPU device the
-loaders raise. Weights come from ``WICCA_TPU_WEIGHTS/<name>.pt`` (a state
-dict, as :func:`wicca_tpu_torch.models.convert.convert_h5` writes), else
-from a deterministic init: a ``torch.Generator`` seeded with the JAX
+loaders raise. Weights come from ``WICCA_TPU_WEIGHTS/<name>.msgpack`` (the
+JAX package's file, flax's msgpack bytes of its variables, as both
+packages' ``convert_h5`` write it, read by
+:mod:`wicca_tpu_torch.models.flax_msgpack` and carried by
+:mod:`wicca_tpu_torch.models.interop`), else from
+``WICCA_TPU_WEIGHTS/<name>.pt`` (a state dict), else from a
+deterministic init: a ``torch.Generator`` seeded with the JAX
 package's per-name seed (the first four bytes of the name's sha256). The
 values of that init differ from the JAX package's, which draws from
 ``jax.random``.
 
-A bad name or an unreadable weights file is logged and gives ``None``, the
-reference's contract; a device fault (no card, a CUDA error while moving the
-model) raises.
+A bad name or an unreadable weights file (one that misses a layer or has
+a leaf of another shape) is logged and gives ``None``, the reference's
+contract; a device fault (no card, a CUDA error while moving the model)
+raises.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from torch import nn
 from wicca_tpu_torch._device import host_data_device
 from wicca_tpu_torch.config.aliases import ModelsDict
 from wicca_tpu_torch.config.constants import DEC_PRED, MODEL, PRE_INP, SHAPE
-from wicca_tpu_torch.models import nasnet_keras, nets
+from wicca_tpu_torch.models import flax_msgpack, interop, nasnet_keras, nets
 from wicca_tpu_torch.models.imagenet import decode_predictions
 
 # ---------------------------------------------------------------------------
@@ -149,11 +154,16 @@ def seed_for(name: str) -> int:
 def _init_params(name: str, module: nn.Module) -> nn.Module:
     weights_dir = os.environ.get("WICCA_TPU_WEIGHTS")
     if weights_dir:
-        path = Path(weights_dir) / f"{name}.pt"
+        # the JAX package's file first, so both packages read the same weights
+        path = Path(weights_dir) / f"{name}.msgpack"
         if path.is_file():
-            module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
+            module.load_state_dict(interop.carry(flax_msgpack.read(path.read_bytes()), module), strict=True)
             return module
-        logging.warning(f"No weights file for {name} at {path}; using deterministic init")
+        pt = path.with_suffix(".pt")
+        if pt.is_file():
+            module.load_state_dict(torch.load(pt, map_location="cpu", weights_only=True), strict=True)
+            return module
+        logging.warning(f"No weights file for {name} at {path} or {pt}; using deterministic init")
     return nets.init_weights(module, torch.Generator().manual_seed(seed_for(name)))
 
 

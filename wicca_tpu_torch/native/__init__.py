@@ -2,3 +2,5 @@
 use, bound with ctypes): the entropy coders of the ``.wct`` container
 (``rice``), the host Haar and 5/3 levels of the folder pipeline's host
 routes (``idwt``) and the strip-parallel PNG writer (``pngw``)."""
+
+from wicca_tpu_torch.native.rice import native_available, rice_decode, rice_encode  # noqa: F401

@@ -73,6 +73,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the entropy library builds and loads (it is built at the first
+    call of the process); the coders raise where it does not."""
+    try:
+        library()
+    except RuntimeError:
+        return False
+    return True
+
+
 # dtype -> (bits, Rice bytes per value at worst)
 _WIDTHS = {np.dtype(np.int8): (8, 3), np.dtype(np.int16): (16, 4), np.dtype(np.int32): (32, 7)}
 

@@ -89,3 +89,38 @@ def measure_scaling(image_hw: tuple[int, int] = (4096, 4096), levels: int = 3, w
             row["note"] = note
         rows.append(row)
     return rows
+
+
+def _rank_rows(image_hw, device_type: str) -> list[dict]:
+    return measure_scaling(image_hw, device_type=device_type)
+
+
+def main(argv=None) -> int:
+    """``python -m wicca_tpu_torch.parallel.scaling``: one world of local
+    ranks (:func:`~wicca_tpu_torch.parallel.launch.run_world`) runs
+    :func:`measure_scaling`; prints ``{"scaling": rows, "backend": ...}``.
+    On the card the world has one NCCL rank per card, or, with more ranks
+    than cards, gloo ranks that share them (their rows carry a ``note``)."""
+    import argparse
+    import json
+
+    from wicca_tpu_torch.parallel.launch import run_world
+
+    ap = argparse.ArgumentParser(prog="python -m wicca_tpu_torch.parallel.scaling", description=main.__doc__)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="world size (default: the number of cards, at least 2; 2 on the CPU)")
+    ap.add_argument("--size", type=int, nargs=2, default=(4096, 4096), metavar=("H", "W"))
+    args = ap.parse_args(argv)
+    device_type = mesh_device_type(args.device)
+    cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    ranks = args.ranks or max(2, cards)
+    backend = "nccl" if device_type == "cuda" and ranks <= cards else "gloo"
+    rows = run_world(_rank_rows, ranks, tuple(args.size), device_type, backend=backend, device_type=device_type,
+                     timeout_s=600.0)[0]
+    print(json.dumps({"scaling": rows, "backend": device_type}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
