@@ -27,7 +27,11 @@ Phases, each fatal on failure:
    folded into their first and last launch (RGB and RGBA, chroma gain 1
    and 2) and K6/K7 with the RCT folded in the same way (RGB and RGBA, both
    filters, uint8 and int32 in, int32 and uint8 out, partial passes),
-   against the codec's composition;
+   against the codec's composition; P1-P3 (PACK1) against their twins:
+   k = 1 with segments of exactly C escapes and of fewer, padded last
+   segments, k = width (raw int8 and int16), mixed k and C, more planes
+   than one launch takes, the upload's corrections (bucket repeats, and
+   hand-made ones before, inside the padding of and past a plane);
 3. the paths at full size on a 3x8704x6144 uint8 frame (bench.py's shape),
    each driven with the launch counters set to 0 just before and read just
    after:
@@ -128,7 +132,8 @@ Phases, each fatal on failure:
       ``decode`` for Haar, ``legall5.3`` + ``rct`` and ``bior4.4`` + ``ict``
       (bytes and pixels equal to the in-process API on the card),
       ``icon``, ``info``, and ``analyze --models SimpleCNN NASNetMobile`` on
-      two frames; each command's launches and wall time;
+      two frames, in five chains run at once; each command's launches and
+      wall time;
    m. the mesh (``wicca_tpu_torch.parallel``) in worlds of ranks on this
       card, each rank counting its own launches around each call: one NCCL
       rank (``make_mesh(1, 1, 1)``, the health check, the Haar
@@ -154,15 +159,31 @@ Phases, each fatal on failure:
       five plots and ``show_image_vs_icon`` (K1 three times); always
       ``examples/demo_torch.py`` in a process of its own (K1, K2, K3, K6
       and K7, each count exact);
+   o. PACK1, the packed stream transfer: (a, b; :func:`phase_pack_streams`,
+      run right after phase 4's timings, before phase i's profiler sessions)
+      ``auto`` packs in neither direction on this card's link; on the
+      depth-5 Haar and ``legall5.3`` + ``rct`` streams of phase i's first
+      3x8704x6144 frame and the Haar stream of its 3x4000x6000 frame (both
+      made from the seed there first), P1-P3 against their twins,
+      ``fetch_stream(force=True)`` equal to ``force=False`` (and in
+      ``serialize`` bytes), ``put_stream(force=True)`` equal to the plain
+      upload; packed and raw bytes, P1-P3 timed as phase 4 times K1-K9
+      against their bounds, the packed and plain downloads, the host's
+      rebuild and pack, and the break-even link rates; (c;
+      :func:`phase_pack_folder`, after n) ``encode_folder``/``decode_folder``
+      of those two frames with ``WICCA_TPU_PACKED_TRANSFER=on``, the same
+      ``.wct`` and PNG bytes as phase i's device route wrote (P1-P3 launch
+      in no count of phases i-n), launches exact;
 4. times at the main-path shapes: each kernel pass's device time
    (``torch.profiler``, median of ``--reps`` launches after warm-up) and its
    wrapper call, its plain twin and the yardstick library call where there
    is one (CUDA events, median of ``--reps`` calls), the bytes each pass
    must move and its bound; the Haar and lossless depth-5 roundtrips called
    alone and back to back, with device-busy time and idle share; then the
-   ``kernels`` JSON line (all nine kernels), whose times and bounds sum each
-   kernel's passes as often as phase 3 ran them (fatal unless their
-   launches add up to phase 3's count). The ``ict`` and ``none`` float
+   ``kernels`` JSON line (K1-K9, then P1-P3 from phase 3o), whose times
+   and bounds sum each kernel's passes as often as phase 3 (for P1-P3,
+   phase 3o's packed folder runs) ran them (fatal unless their launches add
+   up to that count). The ``ict`` and ``none`` float
    roundtrips are timed alone and back to back.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -190,6 +211,7 @@ H, W, LEVELS = 8704, 6144, 5
 HAAR_SOURCE = "wicca_tpu_torch/csrc/haar_kernels.cu"
 LIFTING_SOURCE = "wicca_tpu_torch/csrc/lifting_kernels.cu"
 FLOAT_SOURCE = "wicca_tpu_torch/csrc/lifting_float_kernels.cu"
+PACK_SOURCE = "wicca_tpu_torch/csrc/pack_kernels.cu"
 # kernel -> (TPU kernel it replaces, CUDA source, substring of its device symbol)
 KERNELS = {
     "icon": ("wicca_tpu/ops/dwt_pallas.py:171", HAAR_SOURCE, "icon_"),
@@ -201,6 +223,14 @@ KERNELS = {
     "idwt53_multilevel": ("wicca_tpu/ops/dwt53_pallas.py:210", LIFTING_SOURCE, "lift_inv_lines_kernel"),
     "dwt97_multilevel_quant": ("wicca_tpu/ops/dwt97_pallas.py:155", FLOAT_SOURCE, "lift97_fwd_level_kernel"),
     "idwt97_multilevel_dequant": ("wicca_tpu/ops/dwt97_pallas.py:220", FLOAT_SOURCE, "lift97_inv_level_kernel"),
+}
+# the port's own kernels of PACK1 (no TPU kernel: their counterparts in the
+# JAX package are jnp under jax.jit) -> (that counterpart, CUDA source,
+# device symbol)
+PACK_KERNELS = {
+    "pack1_stats": ("wicca_tpu/codec/transfer.py:335 _stats_fn", PACK_SOURCE, "pack1_stats_kernel"),
+    "pack1_pack": ("wicca_tpu/codec/transfer.py:411 _pack_fn", PACK_SOURCE, "pack1_pack_kernel"),
+    "pack1_unpack": ("wicca_tpu/codec/transfer.py:580 _unpack_plane_fn", PACK_SOURCE, "pack1_unpack_kernel"),
 }
 # H100 SXM rate outside the tensor cores, operations/s (float32; the integer
 # lifting is counted against it too: every pass here is bound by bytes by
@@ -262,18 +292,23 @@ def device_ms(fn, reps: int, match: str | None = None, per_call: int | None = No
     name contains ``match`` (all kernels when None), from ``torch.profiler``.
     With ``per_call`` (the launches one call makes) the median runs over the
     complete calls recorded, since the profiler now and then records fewer
-    launches than ran; None when it records no complete call."""
+    launches than ran (more often the longer the process has run: PERF.md
+    section 7); a session that records no complete call is run again, twice
+    at most; None when none does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.device_time for e in prof.events()
-          if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.device_time for e in prof.events()
+              if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
+        if len(us) >= (per_call or reps):
+            break
     if per_call:
         calls = len(us) // per_call
         if calls < reps:
@@ -290,17 +325,18 @@ def device_ms(fn, reps: int, match: str | None = None, per_call: int | None = No
 
 
 def reset_all_launches() -> None:
-    from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
+    from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda, pack_cuda
 
     dwt_cuda.reset_launches()
     dwt53_cuda.reset_launches()
     dwt97_cuda.reset_launches()
+    pack_cuda.reset_launches()
 
 
 def launch_counts() -> dict:
-    from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
+    from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda, pack_cuda
 
-    return {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES}
+    return {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES, **pack_cuda.LAUNCHES}
 
 
 def read_launches(names, path: str) -> dict:
@@ -408,7 +444,8 @@ def phase_kernels_vs_plain(rng, dev) -> int:
                 check_equal(f"{what} inverse", ops.idwt_level_dequant(*bands, step, quantize),
                             ops.idwt_level_dequant_plain(*bands, step, quantize))
                 n += 1
-    return n + lifting_vs_plain(rng, dev) + ict_fold_vs_plain(rng, dev) + rct_fold_vs_plain(rng, dev)
+    return (n + lifting_vs_plain(rng, dev) + ict_fold_vs_plain(rng, dev) + rct_fold_vs_plain(rng, dev)
+            + pack_vs_plain(rng, dev))
 
 
 FLOAT_STEP_SETS = {
@@ -562,6 +599,76 @@ def rct_fold_vs_plain(rng, dev) -> int:
                                         lops.idwt53_multilevel_plain(*args))
                             n += 1
     return n
+
+
+def pack_vs_plain(rng, dev) -> int:
+    """P1-P3 against their twins on the card, each also against the planes
+    it packs or lands: k = 1 with segments of exactly C escapes and of
+    fewer (rows padded with the first non-escapes), a padded last segment,
+    k = width (raw int8 and int16 codes), mixed k and C, the zigzag
+    extremes, more planes than one launch's table (two launches each);
+    P3 on the host's upload buffers (corrections padded to buckets, raw
+    planes) and on hand-made corrections before, inside the padding of and
+    past a plane."""
+    from wicca_tpu_torch.codec import transfer
+    from wicca_tpu_torch.ops import pack_cuda as pk
+
+    def laplace(shape, dtype, scale):
+        info = np.iinfo(dtype)
+        x = np.clip(np.round(rng.laplace(0, scale, shape)), info.min, info.max).astype(dtype)
+        x.reshape(-1)[:3] = info.min
+        return x
+
+    def escapes(dtype, counts, n):
+        x = np.zeros(n, dtype)
+        for s, c in enumerate(counts):
+            lo, hi = s * pk.SEG, min((s + 1) * pk.SEG, n)
+            x[rng.choice(np.arange(lo, hi), c, replace=False)] = rng.integers(1, 100, c) * rng.choice([-1, 1], c)
+        return x
+
+    many = pk.MAX_PLANES + 5
+    cases = {
+        "k1-escapes-up-to-C": ([escapes(np.int8, (16, 5, 3), 2 * pk.SEG + 700),
+                                escapes(np.int16, (64, 63, 1), 2 * pk.SEG + 33)], [(1, 16), (1, 64)]),
+        "k-width": ([laplace((3, 40, 50), np.int8, 30), laplace((2, 37, 91), np.int16, 900),
+                     laplace((1, 4096), np.int8, 2)], [(8, 0), (16, 0), (3, 512)]),
+        "mixed": ([laplace((3, 40, 50), np.int8, 3), laplace((1, 4096), np.int8, 1),
+                   laplace((2, 37, 91), np.int16, 40), laplace((5000,), np.int16, 0.3)],
+                  [(4, 256), (2, 512), (9, 64), (15, 16)]),
+        "two-launches": ([laplace((3, 33, 47), np.int8 if i % 2 else np.int16, 2) for i in range(many)],
+                         [(3, 64) if i % 2 else (5, 16) for i in range(many)]),
+    }
+    ll = torch.from_numpy(rng.random((3, 5, 7)).astype(np.float32)).to(dev)
+    n = 0
+    for name, (planes_np, kcs) in cases.items():
+        planes = [torch.from_numpy(p).to(dev) for p in planes_np]
+        check_equal(f"pack1_stats {name}", pk.pack1_stats(planes), pk.pack1_stats_plain(planes))
+        check_equal(f"pack1_pack {name}", pk.pack1_pack(planes, kcs, ll), pk.pack1_pack_plain(planes, kcs, ll))
+        meta = transfer._plane_meta([(p.shape, p.dtype) for p in planes_np])
+        buf, layout = transfer._upload_buffer(meta, [transfer._pack_plane_host(p, m) for p, m in zip(planes_np, meta)],
+                                              pinned=False)
+        dbuf = buf.to(dev)
+        for i, (got, want, p) in enumerate(zip(pk.pack1_unpack(dbuf, layout), pk.pack1_unpack_plain(dbuf, layout),
+                                               planes, strict=True)):
+            check_equal(f"pack1_unpack {name} plane {i}", got, want)
+            check_equal(f"pack1_unpack {name} plane {i} against its source", got, p)
+        n += 3
+    # hand-made corrections: before the plane, in its padding, past it, repeated
+    size, k = pk.SEG + 300, 2
+    z = torch.from_numpy(rng.integers(0, 4, pk._npad(size)).astype(np.int32))
+    fields = pk.pack_fields(z, k)
+    pos = np.array([-5, 0, 17, 4095, 4096, 4399, 4399, size + 10, 8191, 8192, 9000], np.int32)
+    vals = np.array([7, 300, 65535, 9, 1000, 2, 2, 40000, 5, 6, 7], np.uint16)
+    at = -(-fields.numel() // 4) * 4
+    buf = torch.zeros(at + 4 * pos.size + 2 * vals.size, dtype=torch.uint8)
+    buf[: fields.numel()] = fields
+    buf[at : at + 4 * pos.size] = torch.from_numpy(pos.view(np.uint8))
+    buf[at + 4 * pos.size :] = torch.from_numpy(vals.view(np.uint8))
+    layout = [pk.UnpackPlane((size,), 16, k, 0, pos.size, at, at + 4 * pos.size)]
+    dbuf = buf.to(dev)
+    check_equal("pack1_unpack hand-made corrections", pk.pack1_unpack(dbuf, layout)[0],
+                pk.pack1_unpack_plain(dbuf, layout)[0])
+    return n + 1
 
 
 # ---------------------------------------------------------------------------
@@ -1015,10 +1122,12 @@ def phase_rate_control(x):
 # read; each folder call reads its own counters)
 # ---------------------------------------------------------------------------
 
-# the folder: four frames of bench.py's shape, one that is not a multiple of
-# 32 (padded) and one grayscale frame (cv2 reads it as RGB, as the
-# reference's loader does)
+# the folder: four frames of bench.py's shape (3j's harness stacks three of
+# them in one K1 launch and the fourth in a second chunk), one that is not a
+# multiple of 32 (padded) and one grayscale frame (cv2 reads it as RGB, as
+# the reference's loader does)
 FOLDER = [(3, H, W)] * 4 + [(3, 4000, 6000), (1, 2048, 2731)]
+MID = FOLDER.index((3, 4000, 6000))  # the padded frame's index; the grayscale one follows
 
 
 def _up4(g: np.ndarray) -> np.ndarray:
@@ -1050,9 +1159,10 @@ def photo_like(shape, seed: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def write_folder(src, seed: int) -> list:
+def write_folder(src, seed: int, made: dict) -> list:
     """The seeded folder, written as PNG (and a note that the listing must
-    leave out); returns each frame as the loader gives it (planar RGB)."""
+    leave out); returns each frame as the loader gives it (planar RGB).
+    ``made`` holds frames already made from the seed, by index."""
     import concurrent.futures
 
     from wicca_tpu_torch.data.pngw import write_png
@@ -1060,7 +1170,7 @@ def write_folder(src, seed: int) -> list:
     src.mkdir()
 
     def make(i):
-        x = photo_like(FOLDER[i], seed + i)
+        x = made[i] if i in made else photo_like(FOLDER[i], seed + i)
         write_png(str(src / f"frame{i}.png"), x)
         return x if x.shape[0] == 3 else np.repeat(x, 3, axis=0)
 
@@ -1086,7 +1196,7 @@ def read_pngs(paths) -> list:
         return list(pool.map(read, paths))
 
 
-def folder_call(card: str, dev, what: str, fn, *args, **kw):
+def folder_call(card: str, dev, what: str, fn, *args, phase: str = "3i", **kw):
     """One folder call on ``dev`` with the launch counters set to 0 just
     before and read just after, under the profiler on a card: its metrics,
     its launches, its wall time and the device's kernel and copy time over
@@ -1106,12 +1216,13 @@ def folder_call(card: str, dev, what: str, fn, *args, **kw):
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     copy_us = sum(e.device_time for e in events if e.name.startswith(("Memcpy", "Memset")))
     kernel_us = sum(e.device_time for e in events) - copy_us
-    recorded = sum(1 for e in events if any(sym in e.name for _, _, sym in KERNELS.values()))
+    recorded = sum(1 for e in events if any(sym in e.name for _, _, sym in (*KERNELS.values(),
+                                                                             *PACK_KERNELS.values())))
     if recorded < sum(launches.values()):
         print(f"  note: the profiler recorded {recorded} of the {sum(launches.values())} launches of {what}")
     row = {"run": what, "metrics": m, "launches": launches, "wall_s": wall, "kernel_ms": kernel_us / 1e3,
            "copy_ms": copy_us / 1e3, "idle_share": 1 - kernel_us / 1e6 / wall}
-    print(f"phase 3i [{card}]: {what}: {json.dumps(m)}; launches {json.dumps(launches)}; kernels "
+    print(f"phase {phase} [{card}]: {what}: {json.dumps(m)}; launches {json.dumps(launches)}; kernels "
           f"{kernel_us / 1e3:.3f} ms, copies {copy_us / 1e3:.3f} ms over {wall:.3f} s (idle share "
           f"{row['idle_share']:.5f})", flush=True)
     return m, row
@@ -1197,11 +1308,11 @@ def stage_split(src, tmp, dev) -> dict:
     return out
 
 
-def phase_folder(tmp, seed: int, card: str, dev=torch.device("cuda")) -> tuple[dict, list]:
+def phase_folder(tmp, seed: int, card: str, made: dict, dev=torch.device("cuda")) -> tuple[dict, list]:
     """Phase 3i, each check fatal: the folder pipeline on a seeded folder of
     photograph-like frames (FOLDER; about 730 MB of uint8 source as PNG),
-    written to ``tmp/src`` (phase 3j reads it too); returns the results and
-    the frames:
+    written to ``tmp/src`` (phase 3j reads it too; ``made``: the frames of
+    it that phase 3o made first); returns the results and the frames:
     1. Haar QuantSpec(1.0) depth 5 through ``encode_folder`` with
        ``path='device'`` and ``path='host'``: the same .wct bytes, equal to
        ``serialize(encode(frame))`` in memory; K2 twice per frame on the
@@ -1222,7 +1333,7 @@ def phase_folder(tmp, seed: int, card: str, dev=torch.device("cuda")) -> tuple[d
     n = len(FOLDER)
     rows = []
     t0 = time.perf_counter()
-    frames = write_folder(tmp / "src", seed)
+    frames = write_folder(tmp / "src", seed, made)
     source_mb = sum(int(np.prod(s)) for s in FOLDER) / 1e6
     print(f"phase 3i [{card}]: folder of {n} PNG frames ({source_mb:.1f} MB of uint8 source, "
           f"{sum(p.stat().st_size for p in (tmp / 'src').glob('*.png')) / 1e6:.1f} MB as PNG) written in "
@@ -1672,7 +1783,7 @@ def time_passes(passes, reps, rate):
         kern()
         launches = launch_counts()[name]
         call_ms = time_ms(kern, reps)  # CUDA events around the wrapper call: host + device
-        ms = device_ms(kern, reps, KERNELS[name][2], launches)
+        ms = device_ms(kern, reps, {**KERNELS, **PACK_KERNELS}[name][2], launches)
         rows.append(dict(kernel=name, part=label, runs=runs, launches=launches, ms=call_ms if ms is None else ms,
                          timing="cuda events" if ms is None else "profiler device time", call_ms=call_ms,
                          plain_ms=time_ms(plain, max(10, reps // 2), warmup=1), bytes=b, operations=ops_count,
@@ -2147,8 +2258,8 @@ try:
     runpy.run_module("wicca_tpu_torch", run_name="__main__", alter_sys=True)
 except SystemExit as e:
     rc = e.code or 0
-from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
-counts = {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES}
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda, pack_cuda
+counts = {**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES, **pack_cuda.LAUNCHES}
 print("LAUNCHES " + json.dumps({k: v for k, v in counts.items() if v}), file=sys.stderr)
 sys.exit(rc)
 """
@@ -2211,16 +2322,28 @@ def entry_check(dev, seed: int, reps: int) -> dict:
     return {"f32_max_abs_err": err, "logit_scale": scale, "forward_ms": time_ms(lambda: forward(model, xd), reps)}
 
 
+def cli_chains(card: str, dev, chains: list) -> list:
+    """Every chain of commands (``(what, args)`` pairs, each through
+    :func:`cli` after the one before it) in a thread of its own, all chains
+    at once; returns each chain's rows."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as pool:
+        return list(pool.map(lambda chain: [cli(card, dev, what, *args) for what, args in chain], chains))
+
+
 def phase_cli(tmp, src, frames, card: str, dev, seed: int, reps: int) -> dict:
     """Phase 3l, each check fatal: :func:`entry_check`; then ``python -m
     wicca_tpu_torch`` in processes of their own on phase 3i's 3x4000x6000
-    frame: ``encode`` (depth 5) and ``decode`` for Haar, ``legall5.3`` +
+    frame, in five chains run at once (:func:`cli_chains`; a command's wall
+    time is taken with the other chains running): ``encode`` (depth 5) then
+    ``decode`` for Haar (then ``info``, integrity ok), ``legall5.3`` +
     ``rct`` and ``bior4.4`` + ``ict``, each ``.wct`` equal byte for byte to
     ``save(encode(frame))`` in this process on the card and each decode's
     PNG equal to ``decode(load(...), emit_u8=True)`` here (the lossless one
     also to the frame); ``icon`` (depth 5) equal to the harness's K1 icon;
-    ``info`` (integrity ok); ``analyze --models SimpleCNN NASNetMobile`` on
-    two frames at depth 3 (every CSV written)."""
+    ``analyze --models SimpleCNN NASNetMobile`` on two frames at depth 3
+    (every CSV written)."""
     import shutil
 
     import cv2
@@ -2232,45 +2355,49 @@ def phase_cli(tmp, src, frames, card: str, dev, seed: int, reps: int) -> dict:
     out: dict = {"entry": entry_check(dev, seed, reps)}
     print(f"phase 3l [{card}]: entry(): (2, 1000) logits; float32 on the card within {F32_TOL} of the CPU's: "
           f"{json.dumps(out['entry'])}", flush=True)
-    name = "frame4.png"
-    frame = frames[4]
+    name = f"frame{MID}.png"
+    frame = frames[MID]
     work = tmp / "cli"
     work.mkdir()
-    rows = []
+    two = work / "two"
+    two.mkdir()
+    for f in (f"frame{MID}.png", f"frame{MID + 1}.png"):
+        shutil.copy(src / f, two / f)
+    chains = [[(f"encode {' '.join(flags) or '(haar)'}", ("encode", src / name, work / f"{tag}.wct", "--levels",
+                                                          LEVELS, *flags)),
+               (f"decode {tag}", ("decode", work / f"{tag}.wct", work / f"{tag}.png"))] for tag, flags in CLI_CODECS]
+    chains[0].append(("info", ("info", work / "haar.wct")))
+    chains.append([("icon --depth 5", ("icon", src / name, work / "icon.png", "--depth", LEVELS))])
+    chains.append([("analyze --models SimpleCNN NASNetMobile --depths 3",
+                    ("analyze", two, "--models", "SimpleCNN", "NASNetMobile", "--depths", "3", "--results-folder",
+                     work / "res", "--quiet"))])
+    t0 = time.perf_counter()
+    done = cli_chains(card, dev, chains)
+    out["chains_s"] = time.perf_counter() - t0
     for tag, flags in CLI_CODECS:
-        wct, png = work / f"{tag}.wct", work / f"{tag}.png"
-        rows.append(cli(card, dev, f"encode {' '.join(flags) or '(haar)'}", "encode", src / name, wct, "--levels",
-                        LEVELS, *flags))
+        wct, png, ref = work / f"{tag}.wct", work / f"{tag}.png", work / f"{tag}_ref.wct"
         kw = dict(zip(flags[::2], flags[1::2]))
-        ref = work / f"{tag}_ref.wct"
         stream = encode(torch.from_numpy(frame).to(dev), levels=LEVELS, spec=QuantSpec(1.0),
                         wavelet=kw.get("--wavelet", "haar"), color=kw.get("--color", "none"))
         save(stream, ref)
         if wct.read_bytes() != ref.read_bytes():
             raise AssertionError(f"encode {tag}: the command's .wct differs from the in-process encode's")
-        rows.append(cli(card, dev, f"decode {tag}", "decode", wct, png))
         want = decode(load(ref, device=dev), emit_u8=True).cpu().numpy()
         got = read_pngs([png])[0]
         if not np.array_equal(got, want) or ("legall" in tag and not np.array_equal(got, frame)):
             raise AssertionError(f"decode {tag}: the command's PNG differs from the in-process decode")
-    rows.append(cli(card, dev, "icon --depth 5", "icon", src / name, work / "icon.png", "--depth", LEVELS))
     icon = cv2.cvtColor(cv2.imread(str(work / "icon.png")), cv2.COLOR_BGR2RGB)
     if not np.array_equal(icon, _compute_icon(np.ascontiguousarray(np.moveaxis(frame, 0, -1)), LEVELS, dev)):
         raise AssertionError("icon: the command's icon differs from the harness's")
-    rows.append(cli(card, dev, "info", "info", work / "haar.wct"))
-    if "integrity: ok" not in rows[-1]["stdout"]:
-        raise AssertionError(f"info: {rows[-1]['stdout']}")
-    two = work / "two"
-    two.mkdir()
-    for f in ("frame4.png", "frame5.png"):
-        shutil.copy(src / f, two / f)
-    rows.append(cli(card, dev, "analyze --models SimpleCNN NASNetMobile --depths 3", "analyze", two, "--models",
-                    "SimpleCNN", "NASNetMobile", "--depths", "3", "--results-folder", work / "res", "--quiet"))
+    if "integrity: ok" not in done[0][-1]["stdout"]:
+        raise AssertionError(f"info: {done[0][-1]['stdout']}")
     for m in ("SimpleCNN", "NASNetMobile"):
         for f in (f"{m}-depth-3.csv", f"{m}-summary-depth-3.csv"):
             if not (work / "res" / "depth-3" / f).is_file():
                 raise AssertionError(f"analyze: no {f}")
-    out["commands"] = [{k: r[k] for k in ("command", "launches", "wall_s")} for r in rows]
+    print(f"phase 3l [{card}]: {sum(map(len, chains))} commands in {len(chains)} chains at once: "
+          f"{out['chains_s']:.2f} s", flush=True)
+    out["commands"] = [{k: r[k] for k in ("command", "launches", "wall_s")} for chain in done for r in chain]
     return out
 
 
@@ -2834,7 +2961,7 @@ def phase_reference_code(tmp, src, two: list, bench_frame: np.ndarray, card: str
     t0 = time.perf_counter()
     ref_src = tmp / "reference_src"
     ref_src.mkdir()
-    for f in ("frame0.png", "frame4.png"):
+    for f in ("frame0.png", f"frame{MID}.png"):
         shutil.copy(src / f, ref_src / f)
     want_k1 = {"icon": sum(icon_launches_expected(two, d) for d in HARNESS_DEPTHS)}
     os.environ["WICCA_TPU_ICON_PATH"] = "device"
@@ -2879,7 +3006,7 @@ def phase_reference_code(tmp, src, two: list, bench_frame: np.ndarray, card: str
     return out
 
 
-def plots_on_the_card(tmp, frame4: np.ndarray, dev) -> dict:
+def plots_on_the_card(tmp, mid_frame: np.ndarray, dev) -> dict:
     """Phase 3n d, the plots (see :func:`phase_reference_code`)."""
     import matplotlib
 
@@ -2889,7 +3016,7 @@ def plots_on_the_card(tmp, frame4: np.ndarray, dev) -> dict:
     from wicca_tpu_torch.compat import result_manager, visualization
     from wicca_tpu_torch.config.constants import SIM_BEST_CLASS, SIM_CLASSES_PERC
 
-    img = np.ascontiguousarray(np.moveaxis(frame4, 0, -1))
+    img = np.ascontiguousarray(np.moveaxis(mid_frame, 0, -1))
     fig, wall = counted("show_image_vs_icon", {"icon": 3}, visualization.show_image_vs_icon, img, (2, 4, 6))
     want = visualization.show_image_vs_icon(img, (2, 4, 6), device="cpu")
     if not all(np.array_equal(a, b) for a, b in zip(drawn(fig), drawn(want), strict=True)):
@@ -2916,14 +3043,15 @@ def plots_on_the_card(tmp, frame4: np.ndarray, dev) -> dict:
 # process made: the counters start at 0 when the ops modules are imported
 DEMO_RUNNER = """
 import json, runpy, sys
-from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda, pack_cuda
 sys.argv = sys.argv[1:]
 try:
     runpy.run_path(sys.argv[0], run_name="__main__")
     code = 0
 except SystemExit as e:
     code = e.code
-print("launches " + json.dumps({**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES}))
+print("launches " + json.dumps({**dwt_cuda.LAUNCHES, **dwt53_cuda.LAUNCHES, **dwt97_cuda.LAUNCHES,
+                               **pack_cuda.LAUNCHES}))
 sys.exit(code)
 """
 DEMO_FRAMES, DEMO_SHAPE, DEMO_DEPTHS, DEMO_LEVELS = 8, (3, 768, 1024), (2, 3, 4), 5  # examples/demo_torch.py
@@ -2966,6 +3094,205 @@ def run_demo(out, plots: bool) -> dict:
     if launches != want:
         raise AssertionError(f"examples/demo_torch.py launched {launches}, expected {want}")
     return {"s": wall, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 3o: PACK1, the packed stream transfer; (a) and (b) right after phase
+# 4's timings, whose place they share (later, after phase i's profiler
+# sessions, the profiler records few of their launches), (c) after phase n
+# ---------------------------------------------------------------------------
+
+
+def host_s(fn, reps: int = 3):
+    """Median host seconds of ``fn()`` over ``reps`` calls, and its last result."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def check_planes(what: str, got, want) -> None:
+    from wicca_tpu_torch.codec import transfer
+
+    for i, (a, b) in enumerate(zip(transfer._planes(got), transfer._planes(want), strict=True)):
+        check_equal(f"{what} plane {i}", a, b.to(a.device))
+
+
+def pack_measure(what: str, st, reps: int, rate: float) -> dict:
+    """PACK1 on one stream of the card, each check fatal: P1 and P2 against
+    their twins on the stream (tolerance 0), ``fetch_stream(force=True)``
+    equal to ``force=False`` plane for plane and in ``serialize`` bytes;
+    ``put_stream(force=True)`` of the host stream equal to the plain upload,
+    P3 against its twin. Times: each kernel as phase 4 times K1-K9
+    (:func:`time_passes`), with its bytes and bound; the packed and the
+    plain download (CUDA events around the copies alone); the host's
+    rebuild and pack (host clock, median of 3); and the break-even link
+    rates: the bytes saved over the time packing adds, each way."""
+    from wicca_tpu_torch.codec import container, transfer
+    from wicca_tpu_torch.ops import pack_cuda as pk
+
+    dev = st.ll.device
+    details = transfer._stream_planes(st)
+    meta = transfer._plane_meta([(tuple(p.shape), p.dtype) for p in details])
+    stats = pk.pack1_stats(details)
+    kcs = transfer._choose_kcs_sticky(stats.cpu().numpy(), meta)
+    ll_bytes, codes = nbytes(st.ll), nbytes(*details)
+    raw, packed_n = codes + ll_bytes, transfer.packed_nbytes(meta, kcs, ll_bytes)
+    buf = pk.pack1_pack(details, kcs, st.ll)
+    err = check_pairs({"pack1_stats": [(f"{what} P1", stats, pk.pack1_stats_plain(details))],
+                       "pack1_pack": [(f"{what} P2", buf, pk.pack1_pack_plain(details, kcs, st.ll))]})
+
+    plain = transfer.fetch_stream(st, force=False)
+    packed = transfer.fetch_stream(st, force=True)
+    check_planes(f"{what}: fetch_stream(force=True) against force=False", packed, plain)
+    if container.serialize(packed) != container.serialize(plain):
+        raise AssertionError(f"{what}: serialize of the packed fetch differs")
+    up_plain = transfer.put_stream(plain, dev, force=False)
+    up_packed = transfer.put_stream(plain, dev, force=True)
+    check_planes(f"{what}: put_stream(force=True) against the plain upload", up_packed, up_plain)
+    check_planes(f"{what}: put_stream(force=True) against the encoded stream", up_packed, st)
+    pack_s, (umeta, parts) = host_s(lambda: transfer._pack_host(plain))
+    hbuf, layout = transfer._upload_buffer(umeta, parts, pinned=True)
+    dbuf = hbuf.to(dev)
+    landed = pk.pack1_unpack(dbuf, layout)
+    err.update(check_pairs({"pack1_unpack": [(f"{what} P3 plane {i}", a, b) for i, (a, b) in enumerate(
+        zip(landed, pk.pack1_unpack_plain(dbuf, layout), strict=True))]}))
+    del up_plain, up_packed, landed
+
+    host_buf = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
+    sinks = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in [st.ll, *details]]
+    d2h_packed_ms = time_ms(lambda: host_buf.copy_(buf, non_blocking=True), 5)
+    d2h_plain_ms = time_ms(lambda: [h.copy_(p, non_blocking=True) for h, p in zip(sinks, [st.ll, *details])], 5)
+    rebuild_s, _ = host_s(lambda: transfer._rebuild_host(st, host_buf.numpy(), meta, kcs))
+    n = sum(p.numel() for p in details)
+    rows = time_passes([
+        ("pack1_stats", what, lambda: pk.pack1_stats(details), lambda: pk.pack1_stats_plain(details),
+         codes + nbytes(stats), sum(p.numel() * (4 + 2 * (m.width - 1)) for p, m in zip(details, meta)), 1),
+        ("pack1_pack", what, lambda: pk.pack1_pack(details, kcs, st.ll),
+         lambda: pk.pack1_pack_plain(details, kcs, st.ll), codes + ll_bytes + packed_n, 16 * n, 1),
+        ("pack1_unpack", what, lambda: pk.pack1_unpack(dbuf, layout), lambda: pk.pack1_unpack_plain(dbuf, layout),
+         dbuf.numel() + codes, 10 * n, 1)], reps, rate)
+    kernels = {r["kernel"]: dict(r, max_abs_err=err[r["kernel"]]) for r in rows}
+    up_packed_n = sum(part.size for _, ps in parts for part in ps)
+    p12_s = (kernels["pack1_stats"]["ms"] + kernels["pack1_pack"]["ms"]) / 1e3
+    return {
+        "stream": what, "raw_bytes": raw, "packed_bytes": packed_n, "ratio": packed_n / raw,
+        "kcs": [list(kc) for kc in kcs], "kernels": kernels,
+        "d2h_packed_ms": d2h_packed_ms, "d2h_plain_ms": d2h_plain_ms, "rebuild_s": rebuild_s,
+        "break_even_down_Bps": (raw - packed_n) / (p12_s + rebuild_s),
+        "upload_raw_bytes": codes, "upload_packed_bytes": up_packed_n, "host_pack_s": pack_s,
+        "break_even_up_Bps": (codes - up_packed_n) / (pack_s + kernels["pack1_unpack"]["ms"] / 1e3),
+    }
+
+
+def print_pack(card: str, r: dict) -> None:
+    k = {name: f"{v['ms']:.4f} ms ({v['timing']}; bound {v['bytes_ms']:.4f})" for name, v in r["kernels"].items()}
+    print(f"phase 3o [{card}]: (a) {r['stream']}: fetch_stream(force=True) equals force=False plane for plane, "
+          f"serialize bytes equal; raw {r['raw_bytes']} bytes, packed {r['packed_bytes']} ({r['ratio']:.4f}); "
+          f"P1 {k['pack1_stats']}, P2 {k['pack1_pack']}; D2H packed {r['d2h_packed_ms']:.4f} ms, plain "
+          f"{r['d2h_plain_ms']:.4f} ms; host rebuild {r['rebuild_s']:.4f} s; break-even link "
+          f"{r['break_even_down_Bps'] / 1e9:.4f} GB/s", flush=True)
+    print(f"phase 3o [{card}]: (b) {r['stream']}: put_stream(force=True) equals the plain upload; upload "
+          f"{r['upload_raw_bytes']} -> {r['upload_packed_bytes']} bytes; P3 {k['pack1_unpack']}; host pack "
+          f"{r['host_pack_s']:.4f} s; break-even link {r['break_even_up_Bps'] / 1e9:.4f} GB/s", flush=True)
+
+
+def phase_pack_streams(made: dict, card: str, dev, reps: int, rate: float) -> dict:
+    """Phase 3o (a) and (b), each check fatal: ``auto`` packs in neither
+    direction for either code width on this card's link (so phases i-n
+    launch no P1-P3, as their exact counts hold); :func:`pack_measure` on
+    the depth-5 Haar ``QuantSpec(1.0)`` stream (K2/K3) and the ``legall5.3``
+    + ``rct`` stream of the photograph-like 3x8704x6144 frame 0 of phase
+    i's folder, and on the Haar stream of its 3x4000x6000 frame (``made``:
+    both, made from the seed here; the bench's noise frame, whose codes do
+    not pack, is left to phase 3e)."""
+    from wicca_tpu_torch import QuantSpec, encode
+    from wicca_tpu_torch.codec import transfer
+
+    spec = QuantSpec(base_step=1.0)
+    auto = {f"{d} int{w}": transfer.enabled(d, w) for d, w in transfer._PACK_BELOW_BYTES_PER_S}
+    out = {"auto_enabled": auto, "link_Bps": transfer.link_bandwidth(device=dev),
+           "pack_below_Bps": {f"{d} int{w}": v for (d, w), v in transfer._PACK_BELOW_BYTES_PER_S.items()}}
+    print(f"phase 3o [{card}]: auto packs: {json.dumps(auto)} (link {out['link_Bps'] / 1e9:.2f} GB/s, packs "
+          f"below {json.dumps(out['pack_below_Bps'])} B/s)", flush=True)
+    if any(auto.values()):
+        raise AssertionError("auto packs on this card: phases 3i-3n would run PACK1")
+    rows = []
+    for name, frame, kw in ((f"3x{H}x{W} haar", made[0], dict(spec=spec)),
+                            (f"3x{H}x{W} legall5.3+rct", made[0], dict(wavelet="legall5.3", color="rct")),
+                            ("3x4000x6000 haar", made[MID], dict(spec=spec))):
+        st = encode(torch.from_numpy(frame).to(dev), levels=LEVELS, **kw)
+        rows.append(pack_measure(name, st, reps, rate))
+        print_pack(card, rows[-1])
+        del st
+    out["streams"] = rows
+    return out
+
+
+def phase_pack_folder(tmp, card: str, dev) -> tuple[list, dict]:
+    """Phase 3o (c), each check fatal: ``encode_folder``/``decode_folder``
+    (``path='device'``, Haar ``QuantSpec(1.0)`` depth 5) of frame 0 and the
+    3x4000x6000 frame of phase i's folder with
+    ``WICCA_TPU_PACKED_TRANSFER=on``: the same ``.wct`` and PNG bytes as
+    phase i's device route wrote for them; launches exact (encode: K2 2 and
+    P1, P2 1 per frame; decode: K3 2 and P3 1 per frame). Returns the rows
+    and the P1-P3 launches."""
+    import shutil
+
+    from wicca_tpu_torch import QuantSpec
+    from wicca_tpu_torch.codec import batch
+
+    src = tmp / "pack_src"
+    src.mkdir()
+    names = ["frame0", f"frame{MID}"]
+    for f in names:  # as phase 3i wrote them
+        shutil.copyfile(tmp / "src" / f"{f}.png", src / f"{f}.png")
+    runs, launched = [], {}
+    os.environ["WICCA_TPU_PACKED_TRANSFER"] = "on"
+    try:
+        m, row = folder_call(card, dev, "encode haar PACK1 on", batch.encode_folder, src, tmp / "pack_wct",
+                             levels=LEVELS, spec=QuantSpec(base_step=1.0), path="device", phase="3o")
+        check_launches("encode PACK1 on", row, {"dwt_multilevel_quant": 4, "pack1_stats": 2, "pack1_pack": 2})
+        runs.append(row)
+        m, row = folder_call(card, dev, "decode haar PACK1 on", batch.decode_folder, tmp / "pack_wct",
+                             tmp / "pack_png", path="device", phase="3o")
+        check_launches("decode PACK1 on", row, {"idwt_multilevel_dequant": 4, "pack1_unpack": 2})
+        runs.append(row)
+    finally:
+        os.environ.pop("WICCA_TPU_PACKED_TRANSFER", None)
+    for row in runs:
+        launched.update({k: launched.get(k, 0) + v for k, v in row["launches"].items() if k in PACK_KERNELS})
+    check_same_files("PACK1 on: .wct against phase 3i's", tmp / "haar_device", tmp / "pack_wct",
+                     [f + ".wct" for f in names])
+    check_same_files("PACK1 on: PNG against phase 3i's", tmp / "haar_png0_device", tmp / "pack_png",
+                     [f + ".png" for f in names])
+    print(f"phase 3o [{card}]: (c) encode_folder/decode_folder of 2 frames with WICCA_TPU_PACKED_TRANSFER=on: "
+          f".wct and PNG bytes equal phase 3i's device route; PACK1 launches {json.dumps(launched)}", flush=True)
+    return runs, launched
+
+
+def pack_kernel_entries(streams: list, launched: dict) -> list:
+    """P1-P3's entries of the ``kernels`` line: times and bounds summed over
+    (a)'s two Haar streams, whose frames (c) packs, one launch each (fatal
+    unless the timed launches add up to (c)'s count)."""
+    kernels = []
+    haar = [r for r in streams if r["stream"].endswith("haar")]
+    for name, (replaces, source, _) in PACK_KERNELS.items():
+        parts = [r["kernels"][name] for r in haar]
+        if sum(p["launches"] for p in parts) != launched[name]:
+            raise AssertionError(f"{name}: the timed calls do not add up to phase 3o's {launched[name]} launches")
+        bytes_ms = sum(p["bytes_ms"] for p in parts)
+        ops_ms = sum(p["operations_ms"] for p in parts)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launched[name],
+            "max_abs_err": max(r["kernels"][name]["max_abs_err"] for r in streams),
+            "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        })
+    return kernels
 
 
 def print_folder(folder: dict, card: str, cpu: str, t0: float) -> None:
@@ -3099,15 +3426,20 @@ def main(argv=None) -> int:
           f"in {rc['truncate_s']:.2f} s, PSNR {rc['truncate_psnr_db']:.4f} dB ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    # phase 4's timings and phase 3o (a, b) before phase 3i, whose profiler
+    # sessions thin the profiler's later records
     rows, kernels, e2e = phase_times(x, launches, max_abs_err, args.reps, rate)
-    # phase 3i after phase 4's timings: its profiler sessions would cost
-    # phase 4's profiler records
+    t0 = time.perf_counter()
+    made = {i: photo_like(FOLDER[i], args.seed + i) for i in (0, MID)}  # phase 3i's, made here first
+    pack = phase_pack_streams(made, card, torch.device("cuda"), args.reps, rate)
+    print(f"phase 3o (a, b) [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
     import tempfile
     from pathlib import Path
 
     with tempfile.TemporaryDirectory(prefix="wicca_folder_") as tmp:
         t0 = time.perf_counter()
-        folder, frames = phase_folder(Path(tmp), args.seed, card)
+        folder, frames = phase_folder(Path(tmp), args.seed, card, made)
+        del made
         print_folder(folder, card, cpu, t0)
         t0 = time.perf_counter()
         harness = phase_harness(Path(tmp) / "src", frames, card, torch.device("cuda"), args.reps)
@@ -3118,7 +3450,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         commands = phase_cli(Path(tmp), Path(tmp) / "src", frames, card, torch.device("cuda"), args.seed, args.reps)
         print(f"phase 3l [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
-        two = [frames[0], frames[4]]  # a 3x8704x6144 and the 3x4000x6000 frame, for phase 3n
+        two = [frames[0], frames[MID]]  # a 3x8704x6144 and the 3x4000x6000 frame, for phase 3n
         del frames
         t0 = time.perf_counter()
         mesh = phase_mesh(Path(tmp), args.seed, card)
@@ -3127,6 +3459,10 @@ def main(argv=None) -> int:
         reference = phase_reference_code(Path(tmp), Path(tmp) / "src", two, frame, card, torch.device("cuda"),
                                          args.seed)
         print(f"phase 3n [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        pack["folder"], launched = phase_pack_folder(Path(tmp), card, torch.device("cuda"))
+        kernels += pack_kernel_entries(pack["streams"], launched)
+        print(f"phase 3o (c) [{card}; host {cpu}]: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for r in rows:
         print(f"  {r['kernel']:<25} {r['part']:<49} x{r['runs']} {r['ms']:.4f} ms ({r['timing']}; "
@@ -3134,7 +3470,7 @@ def main(argv=None) -> int:
               f"bound {r['bytes_ms']:.4f} ms  {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     host = {"cpu": cpu, "container": container_rows, "roi": roi_rows, "big_plane": big, "rate_control": rc,
             "folder": folder, "harness": harness, "train": train, "cli": commands, "mesh": mesh,
-            "reference": reference}
+            "reference": reference, "pack": pack}
     print(json.dumps({"card": card, "hbm_bytes_per_s": rate, "passes": rows, "end_to_end": e2e, "host": host}))
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

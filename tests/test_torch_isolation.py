@@ -16,7 +16,7 @@ from wicca_tpu_torch import HaarCoder, QuantSpec, decode, decode_at_level, encod
 from wicca_tpu_torch._device import resolve_device
 from wicca_tpu_torch.codec import container
 from wicca_tpu_torch.codec.interop import stream_from_arrays
-from wicca_tpu_torch.native import idwt, pngw, rice
+from wicca_tpu_torch.native import idwt, pack, pngw, rice
 from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, dwt_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -65,7 +65,8 @@ def test_no_jax_and_no_wicca_tpu_in_a_fresh_process():
                  "wicca_tpu_torch.compat.result_manager", "wicca_tpu_torch.compat.validation",
                  "wicca_tpu_torch.compat.visualization", "wicca_tpu_torch.compat.wavelet_coder",
                  "wicca_tpu_torch.compat.config", "wicca_tpu_torch.compat.config.aliases",
-                 "wicca_tpu_torch.compat.config.constants"):
+                 "wicca_tpu_torch.compat.config.constants", "wicca_tpu_torch.native.pack",
+                 "wicca_tpu_torch.ops.pack_cuda"):
         assert name in res["modules"]
 
 
@@ -87,12 +88,13 @@ def test_entropy_library_builds_from_the_port_alone(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("lib,flags,libs", [(idwt, ["-ffp-contract=off", "-pthread"], []),
-                                             (pngw, ["-pthread"], ["-lz"])])
+                                             (pngw, ["-pthread"], ["-lz"]), (pack, [], [])])
 def test_host_libraries_build_from_the_port_alone(lib, flags, libs, tmp_path, monkeypatch):
     """g++ builds the port's own idwt.cpp (every float operation rounded on
-    its own) and pngw.cpp (a shared object of its own, the only one linked
-    with zlib) under the build root it is given; a failed build raises with
-    its command."""
+    its own), pngw.cpp (a shared object of its own, the only one linked
+    with zlib) and pack.cpp (PACK1's host side, a shared object of its own)
+    under the build root it is given; a failed build raises with its
+    command."""
     calls = []
     run = subprocess.run
     monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: calls.append(list(cmd)) or run(cmd, **kw))

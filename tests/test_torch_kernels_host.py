@@ -13,7 +13,7 @@ import torch
 
 from wicca_tpu_torch.core.pad import pad_to_multiple
 from wicca_tpu_torch.ops import _build
-from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda
+from wicca_tpu_torch.ops import dwt53_cuda, dwt97_cuda, pack_cuda
 from wicca_tpu_torch.ops import dwt_cuda as ops
 
 STEP_SETS = {
@@ -309,3 +309,105 @@ def test_ict_folded_float_kernels_match_plain(host_lib, channels, gain):
                 _equal(dwt97_cuda._launch_inv(host_lib, ll, dets[1:], steps[1:], True, k, filt, 0.3, 0, "ict", gain),
                        dwt97_cuda.idwt97_multilevel_dequant_plain(ll, dets[1:], steps[1:], True, k, filt, 0.3, "ict",
                                                                   gain))
+
+
+# ---------------------------------------------------------------------------
+# P1-P3: the PACK1 kernels (ops/pack_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+def _escapes_plane(dtype, counts, n, seed):
+    """A plane of zeros with ``counts[s]`` escapes (|c| >= 1, so z >= 1 =
+    the k = 1 marker) at random places of segment s; past ``n`` nothing."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros(n, dtype)
+    for s, c in enumerate(counts):
+        lo, hi = s * pack_cuda.SEG, min((s + 1) * pack_cuda.SEG, n)
+        x[rng.choice(np.arange(lo, hi), c, replace=False)] = rng.integers(1, 100, c) * rng.choice([-1, 1], c)
+    return torch.from_numpy(x)
+
+
+def _laplace_plane(shape, dtype, scale, seed):
+    info = np.iinfo(dtype)
+    x = np.round(np.random.default_rng(seed).laplace(0, scale, shape))
+    x = np.clip(x, info.min, info.max).astype(dtype)
+    x.reshape(-1)[:3] = info.min  # zigzag's largest code
+    return torch.from_numpy(x)
+
+
+# name -> (planes, (k, cap) per plane)
+PACK_CASES = {
+    # k = 1: a segment with exactly C escapes, one with fewer (its row padded
+    # with its first non-escapes), and a padded last segment
+    "k1-escapes-up-to-C": (lambda: [_escapes_plane(np.int8, (16, 5, 3), 2 * 4096 + 700, 1),
+                                    _escapes_plane(np.int16, (64, 63, 1), 2 * 4096 + 33, 2)],
+                           [(1, 16), (1, 64)]),
+    # k == width: raw zigzag codes (int8, int16), next to packed planes
+    "k-width": (lambda: [_laplace_plane((3, 40, 50), np.int8, 30, 3), _laplace_plane((2, 37, 91), np.int16, 900, 4),
+                         _laplace_plane((1, 4096), np.int8, 2, 5)],
+                [(8, 0), (16, 0), (3, 512)]),
+    "mixed": (lambda: [_laplace_plane((3, 40, 50), np.int8, 3, 6), _laplace_plane((1, 4096), np.int8, 1, 7),
+                       _laplace_plane((2, 37, 91), np.int16, 40, 8), _laplace_plane((5000,), np.int16, 0.3, 9)],
+              [(4, 256), (2, 512), (9, 64), (15, 16)]),
+}
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_kernels_match_plain(host_lib, case):
+    """P1 (statistics) and P2 (the packed buffer, LL appended) against their
+    twins; tolerance 0."""
+    make, kcs = PACK_CASES[case]
+    planes = make()
+    ll = torch.from_numpy(np.random.default_rng(0).random((3, 5, 7)).astype(np.float32))
+    _equal(pack_cuda._launch_stats(host_lib, planes, 0), pack_cuda.pack1_stats_plain(planes))
+    _equal(pack_cuda._launch_pack(host_lib, planes, kcs, ll, 0), pack_cuda.pack1_pack_plain(planes, kcs, ll))
+
+
+def test_pack_kernel_splits_long_plane_lists(host_lib, monkeypatch):
+    """More planes than one launch's table holds: one launch per part."""
+    monkeypatch.setattr(pack_cuda, "MAX_PLANES", 2)
+    planes = PACK_CASES["mixed"][0]()
+    kcs = PACK_CASES["mixed"][1]
+    ll = torch.arange(12, dtype=torch.int32)
+    pack_cuda.reset_launches()
+    _equal(pack_cuda._launch_stats(host_lib, planes, 0), pack_cuda.pack1_stats_plain(planes))
+    _equal(pack_cuda._launch_pack(host_lib, planes, kcs, ll, 0), pack_cuda.pack1_pack_plain(planes, kcs, ll))
+    assert pack_cuda.LAUNCHES == {"pack1_stats": 2, "pack1_pack": 3, "pack1_unpack": 0}
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_unpack_kernel_matches_plain(host_lib, case):
+    """P3 on the upload the host packs (fields, corrections padded to a
+    bucket with repeats, raw planes) lands the planes, as its twin does."""
+    from wicca_tpu_torch.codec import transfer
+
+    planes = PACK_CASES[case][0]()
+    meta = transfer._plane_meta([(tuple(p.shape), p.dtype) for p in planes])
+    packed = [transfer._pack_plane_host(p.numpy(), m) for p, m in zip(planes, meta)]
+    buf, layout = transfer._upload_buffer(meta, packed, pinned=False)
+    got = pack_cuda._launch_unpack(host_lib, buf, layout, 0)
+    for g, w, p in zip(got, pack_cuda.pack1_unpack_plain(buf, layout), planes, strict=True):
+        _equal(g, w)
+        _equal(g, p)
+
+
+def test_unpack_kernel_drops_corrections_outside_the_plane(host_lib):
+    """Hand-made corrections: before the plane, in the padding past n
+    (applied, not stored), past the padded plane (dropped), repeated."""
+    n, k, width = 4096 + 300, 2, 16
+    z = np.random.default_rng(11).integers(0, 4, pack_cuda._npad(n)).astype(np.int32)
+    fields = pack_cuda.pack_fields(torch.from_numpy(z), k)
+    pos = np.array([-5, 0, 17, 4095, 4096, 4399, 4399, n + 10, 8191, 8192, 9000], np.int32)
+    vals = np.array([7, 300, 65535, 9, 1000, 2, 2, 40000, 5, 6, 7], np.uint16)
+    off_pos = -(-fields.numel() // 4) * 4
+    buf = torch.zeros(off_pos + 4 * pos.size + 2 * vals.size, dtype=torch.uint8)
+    buf[: fields.numel()] = fields
+    buf[off_pos : off_pos + 4 * pos.size] = torch.from_numpy(pos.view(np.uint8))
+    buf[off_pos + 4 * pos.size :] = torch.from_numpy(vals.view(np.uint8))
+    layout = [pack_cuda.UnpackPlane((n,), width, k, 0, pos.size, off_pos, off_pos + 4 * pos.size)]
+    got = pack_cuda._launch_unpack(host_lib, buf, layout, 0)[0]
+    _equal(got, pack_cuda.pack1_unpack_plain(buf, layout)[0])
+    want = z.copy()
+    keep = (pos >= 0) & (pos < pack_cuda._npad(n))
+    want[pos[keep]] = vals[keep]
+    _equal(got, pack_cuda.unzigzag(torch.from_numpy(want[:n]), width))

@@ -263,7 +263,7 @@ def _decode_route(stream, at_level: int, path: str, device=None) -> str:
     nchan = int(np.prod(stream.ll.shape[:-2])) or 1
     # the device route uploads every coefficient even for a coarse preview;
     # only the reconstruction's download shrinks with at_level
-    up = stream.num_bytes() * (0.65 if transfer.enabled() else 1.0)
+    up = stream.num_bytes() * (0.65 if transfer.enabled("up") else 1.0)
     down = (h * w * nchan * (1 if stream.bit_depth <= 8 else 2)) >> (2 * at_level)
     mp = h * w / (1e6 * (1 << (2 * at_level)))
     device_s = (up + down) / link + _device_s("decode", mp) + _DISPATCH_S

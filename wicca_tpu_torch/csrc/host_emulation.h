@@ -45,6 +45,7 @@
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -56,6 +57,14 @@ struct uint3 {
 
 inline thread_local uint3 blockIdx, threadIdx;
 inline thread_local dim3 blockDim, gridDim;
+
+// The launches run one thread at a time (fibers switch only at barriers), so
+// an atomic is a plain read-modify-write.
+inline int atomicMax(int* a, int v) {
+  const int old = *a;
+  if (v > old) *a = v;
+  return old;
+}
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

@@ -20,8 +20,8 @@ Layout notes: Keras and Flax both store conv kernels HWIO and dense kernels
 
 Coverage: VGG16/19, ResNet50, MobileNetV2, EfficientNetB0, DenseNet121,
 NASNetMobile (the checkpoint graph, :mod:`wicca_tpu_torch.models.nasnet_keras`).
-Downloading pretrained files (the JAX package's ``fetch_keras_weights``) is
-not ported: nothing here reaches a network.
+:func:`fetch_keras_weights` downloads a pretrained file through TensorFlow
+where it is installed; nothing else here reaches a network.
 """
 
 from __future__ import annotations
@@ -265,6 +265,18 @@ SCHEMAS = {
 }
 
 
+# keras.applications download identifiers for fetch_keras_weights
+_KERAS_FACTORIES = {
+    "VGG16": ("tensorflow.keras.applications", "VGG16"),
+    "VGG19": ("tensorflow.keras.applications", "VGG19"),
+    "ResNet50": ("tensorflow.keras.applications", "ResNet50"),
+    "MobileNetV2": ("tensorflow.keras.applications", "MobileNetV2"),
+    "EfficientNetB0": ("tensorflow.keras.applications", "EfficientNetB0"),
+    "DenseNet121": ("tensorflow.keras.applications", "DenseNet121"),
+    "NASNetMobile": ("tensorflow.keras.applications", "NASNetMobile"),
+}
+
+
 def convertible_architectures() -> tuple[str, ...]:
     return tuple(SCHEMAS)
 
@@ -452,3 +464,25 @@ def convert_h5(arch: str, h5_path: str | Path, out_dir: str | Path) -> Path:
     out.write_bytes(flax_msgpack.write(tree))
     logging.info(f"{arch}: converted {report['converted']} layers -> {out}")
     return out
+
+
+def fetch_keras_weights(arch: str, cache_dir: str | Path) -> Path:
+    """Download the pretrained Keras H5 of ``arch`` through TensorFlow
+    (needs tensorflow and a network) into ``<cache_dir>/<arch>_imagenet.h5``
+    and return its path, for :func:`convert_h5`. Without TensorFlow it
+    raises :class:`RuntimeError`; offline, convert a file downloaded
+    elsewhere with :func:`convert_h5` directly."""
+    import importlib
+
+    try:
+        mod_name, cls_name = _KERAS_FACTORIES[arch]
+        mod = importlib.import_module(mod_name)
+    except ImportError as e:
+        raise RuntimeError(
+            "tensorflow is required to download pretrained weights; pass a "
+            "pre-downloaded .h5 file instead"
+        ) from e
+    model = getattr(mod, cls_name)(weights="imagenet")
+    path = Path(cache_dir) / f"{arch}_imagenet.h5"
+    model.save_weights(str(path))
+    return path

@@ -25,8 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("haar_kernels.cu", "lifting_kernels.cu", "lifting_float_kernels.cu")
-HEADERS = ("launch.cuh", "haar_kernels.cuh", "lifting_kernels.cuh")
+SOURCES = ("haar_kernels.cu", "lifting_kernels.cu", "lifting_float_kernels.cu", "pack_kernels.cu")
+HEADERS = ("launch.cuh", "haar_kernels.cuh", "lifting_kernels.cuh", "pack_kernels.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no multiply-add contraction beyond the explicit __fmaf_rn
 # calls, which sit exactly where the reference rounds a product and a sum once
@@ -89,9 +89,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, i64, i64, vp, vp, vp, i64, i64, c_int, i64, i64, i64, i64, i64, c_float, c_float, c_float, c_float, vp,
         c_int, c_int, c_int, c_float, vp,
     ]
+    pi64, pi32 = ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_int32)
+    lib.wicca_pack1_stats.argtypes = [c_int, pp, pi64, pi64, pi32, vp, vp]
+    lib.wicca_pack1_pack.argtypes = [c_int, pp, pi64, pi64, pi32, pi32, pi32, pi32, vp, vp]
+    lib.wicca_pack1_unpack.argtypes = [c_int, pp, pi64, pi64, pi64, pi64, pi32, pi32, pi32, vp, vp]
     for fn in (lib.wicca_icon_u8, lib.wicca_icon_f32, lib.wicca_dwt_quant, lib.wicca_idwt_dequant,
                lib.wicca_dwt_level, lib.wicca_idwt_level, lib.wicca_lift_fwd_level, lib.wicca_lift_inv_level,
-               lib.wicca_lift97_fwd_level, lib.wicca_lift97_inv_level):
+               lib.wicca_lift97_fwd_level, lib.wicca_lift97_inv_level, lib.wicca_pack1_stats, lib.wicca_pack1_pack,
+               lib.wicca_pack1_unpack):
         fn.restype = c_int
 
 
