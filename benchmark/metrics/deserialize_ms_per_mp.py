@@ -1,0 +1,7 @@
+"""Host milliseconds of ``container.deserialize`` per frame megapixel."""
+
+from benchmark.lib import readers
+
+
+def read(run):
+    return readers.span_ms_per_mp(run, "deserialize")
