@@ -117,7 +117,8 @@ def _same_csvs(jax_dir, port_dir, depths, names):
         metrics = [json.loads((d / f"depth-{depth}" / "run-metrics.json").read_text()) for d in (jax_dir, port_dir)]
         assert set(metrics[0]) == set(metrics[1]) == {"depth", "classifiers", "images_pixels", "wall_s",
                                                       "megapixels_per_s", "stage_seconds"}
-        assert set(metrics[0]["stage_seconds"]) == set(metrics[1]["stage_seconds"])
+        # the port adds the main thread's wait on the classifiers and the results' writing
+        assert set(metrics[0]["stage_seconds"]) | {"wait_classifiers", "results"} == set(metrics[1]["stage_seconds"])
         for key in ("depth", "classifiers", "images_pixels"):
             assert metrics[0][key] == metrics[1][key]
 

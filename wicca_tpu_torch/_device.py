@@ -7,12 +7,18 @@ The rule of the port:
   ``device="cpu"`` (or another device);
 * with no card and no explicit CPU device the call raises — it never
   quietly runs on the CPU.
+
+:func:`upload` and :func:`download` hand arrays between host memory and
+the device's tensors as the link's spans (``link.up``, ``link.down``) and
+byte counters (:mod:`wicca_tpu_torch.utils.timing`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from wicca_tpu_torch.utils.timing import count, span
 
 
 def host_data_device(device=None) -> torch.device:
@@ -41,4 +47,19 @@ def as_tensor(x, device=None) -> torch.Tensor:
     dev = resolve_device(x, device)
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return upload(x, dev)
+
+
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (one copy to a card)."""
+    x = np.ascontiguousarray(x)
+    with span("link.up"):
+        count("link.up_bytes", x.nbytes)
+        return torch.from_numpy(x).to(device)
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array (one copy from a card)."""
+    with span("link.down"):
+        count("link.down_bytes", t.numel() * t.element_size())
+        return t.cpu().numpy()

@@ -43,7 +43,9 @@ The entropy stage (:mod:`wicca_tpu_torch.native.rice`) runs plane-parallel
 on host threads. ``serialize`` takes a stream wherever its tensors lie and
 copies them to the host once; ``deserialize``/``load`` build the planes on
 the host and move each once to ``device`` (CUDA unless the caller passes
-``device='cpu'``: container bytes are host data). Unlike the reference, a
+``device='cpu'``: container bytes are host data). Their stages are spans
+(``container.*``, ``link.*``; :mod:`wicca_tpu_torch.utils.timing`). Unlike
+the reference, a
 missing entropy library raises (naming the compiler command) instead of
 writing numpy ``RAW0``/``RAW1`` planes, which would change the bytes; such
 planes written by the reference are read.
@@ -65,6 +67,7 @@ from wicca_tpu_torch.codec.pipeline import CodeStream
 from wicca_tpu_torch.comm import gather_stream
 from wicca_tpu_torch.core.quant import QuantSpec
 from wicca_tpu_torch.native.rice import native_available, rc_decode, rc_encode, rice_decode, rice_encode  # noqa: F401
+from wicca_tpu_torch.utils.timing import count, span
 
 _MAGIC, _MAGIC_V5, _MAGIC_V6, _MAGIC_V7 = b"WCT4", b"WCT5", b"WCT6", b"WCT7"
 _MAGIC_V8, _MAGIC_V9, _MAGIC_V10 = b"WCT8", b"WCT9", b"WC10"
@@ -220,29 +223,34 @@ def host_arrays(tensors) -> list[np.ndarray]:
     """Each tensor as a numpy array on the host: CUDA tensors are copied
     into pinned memory without waiting and the card is synchronized once;
     CPU tensors and numpy arrays are used as they are."""
-    out, cuda = [], False
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            out.append(h)
-            cuda = True
-        else:
-            out.append(t)
-    if cuda:
-        torch.cuda.synchronize()
-    return [a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a) for a in out]
+    with span("link.down"):
+        out, cuda = [], False
+        for t in tensors:
+            if isinstance(t, torch.Tensor):
+                count("link.down_bytes", t.numel() * t.element_size())
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                out.append(h)
+                cuda = True
+            else:
+                out.append(t)
+        if cuda:
+            torch.cuda.synchronize()
+        return [a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a) for a in out]
 
 
 def _to_device(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
     """Host arrays as tensors on ``device``: each moved once from pinned
     memory without waiting, then one synchronization."""
     dev = host_data_device(device)
-    if dev.type != "cuda":
-        return [torch.from_numpy(a).to(dev) for a in arrays]
-    out = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in arrays]
-    torch.cuda.synchronize(dev)
-    return out
+    with span("link.up"):
+        count("link.up_bytes", sum(a.nbytes for a in arrays))
+        if dev.type != "cuda":
+            return [torch.from_numpy(a).to(dev) for a in arrays]
+        out = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in arrays]
+        torch.cuda.synchronize(dev)
+        return out
 
 
 def serialize(
@@ -348,36 +356,42 @@ def serialize(
         return struct.pack("<BfI", mode, step, len(blob)) + blob
 
     def code_all(items):
-        with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as pool:
-            return list(pool.map(lambda p: _encode_plane(p, codec), items))
+        with span("container.entropy_encode"):
+            with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as pool:
+                return list(pool.map(lambda p: _encode_plane(p, codec), items))
 
+    count("container.serialized_mp", stream.orig_shape[0] * stream.orig_shape[1] / 1e6)
     if quality_layers == 1:
         encoded = code_all(planes)
-        out += ll_section()
-        close_unit(0)
-        for plane, (codec_id, data) in zip(planes, encoded):
-            start = len(out)
-            out += struct.pack("<BBIII", codec_id, _DTYPES[plane.dtype], plane.shape[-2], plane.shape[-1], len(data))
-            out += data
-            close_unit(start)
     else:
-        # layer-major sections: a byte prefix of complete layers decodes
-        if not extended:
-            out += struct.pack("<B", quality_layers)
-        out += ll_section()
         subs = [_split_layers(p, quality_layers) for p in planes]
         encoded = code_all([subs[i][q] for q in range(quality_layers) for i in range(len(planes))])
-        for plane in planes:
-            out += struct.pack("<BII", _DTYPES[plane.dtype], plane.shape[-2], plane.shape[-1])
-        close_unit(0)
-        for codec_id, data in encoded:
-            start = len(out)
-            out += struct.pack("<BI", codec_id, len(data))
-            out += data
-            close_unit(start)
-    if checksums:
-        out += _trailer_bytes(units)
-    return bytes(out)
+    with span("container.assemble"):
+        if quality_layers == 1:
+            out += ll_section()
+            close_unit(0)
+            for plane, (codec_id, data) in zip(planes, encoded):
+                start = len(out)
+                out += struct.pack("<BBIII", codec_id, _DTYPES[plane.dtype], plane.shape[-2], plane.shape[-1],
+                                   len(data))
+                out += data
+                close_unit(start)
+        else:
+            # layer-major sections: a byte prefix of complete layers decodes
+            if not extended:
+                out += struct.pack("<B", quality_layers)
+            out += ll_section()
+            for plane in planes:
+                out += struct.pack("<BII", _DTYPES[plane.dtype], plane.shape[-2], plane.shape[-1])
+            close_unit(0)
+            for codec_id, data in encoded:
+                start = len(out)
+                out += struct.pack("<BI", codec_id, len(data))
+                out += data
+                close_unit(start)
+        if checksums:
+            out += _trailer_bytes(units)
+        return bytes(out)
 
 
 def _read_metadata(data: bytes, off: int, version: int) -> tuple[tuple, int]:
@@ -474,38 +488,6 @@ def deserialize(
     if on_error not in ("raise", "zero"):
         raise ValueError(f"on_error must be raise|zero, got {on_error!r}")
     data = bytes(data)
-    h, off = _read_header(data)
-    version, wv, levels, lead = h["version"], h["wv"], h["levels"], h["lead"]
-    llh, llw = h["ll_shape"]
-    n_layers, roi_shift, bg_shift, base_step = h["n_layers"], h["roi_shift"], h["bg_shift"], h["base_step"]
-    band_div = h["band_div"]
-    if version >= 9:
-        if len(band_div) != levels * 3 or any(d < 1 for d in band_div):
-            raise ValueError("container divisor table corrupt")
-        band_div = band_div if any(d != 1 for d in band_div) else ()
-    metadata, off = _read_metadata(data, off, version)
-    layered = h["layered"]
-    ll_dtype = np.int32 if wv in _INT_WAVELET_IDS else np.float32
-    if version >= 10:
-        ll_mode, ll_step, ll_nbytes = struct.unpack_from("<BfI", data, off)
-        off += struct.calcsize("<BfI")
-        if ll_mode not in (1, 2):
-            raise ValueError(f"unknown LL coding mode {ll_mode}")
-        codes = rice_decode(data[off : off + ll_nbytes], lead * llh * llw, np.int32).reshape(lead, llh, llw)
-        ll = (codes if ll_mode == 1 else codes.astype(np.float32) * ll_step).astype(ll_dtype)
-        off += ll_nbytes
-    else:
-        ll = np.frombuffer(data, dtype=ll_dtype, count=lead * llh * llw, offset=off).reshape(lead, llh, llw).copy()
-        off += ll.nbytes
-    n_planes = levels * 3
-    n_units = 1 + n_planes * (n_layers if layered else 1)
-    trailer = _read_trailer(data, n_units)
-    if trailer is None:
-        scanned = _scan_trailer_units(data)
-        if scanned is not None and scanned != n_units:
-            raise ValueError(f"container header corrupt: trailer records {scanned} sections,"
-                             f" header implies {n_units}")
-    corrupt: list[str] = []
 
     def dec(args):
         meta, blob = args
@@ -521,56 +503,135 @@ def deserialize(
         with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as pool:
             return list(pool.map(dec, zip(metas, blobs)))
 
-    if layered:
-        dirs = []
-        for _ in range(n_planes):
-            dirs.append(struct.unpack_from("<BII", data, off))
-            off += struct.calcsize("<BII")
-        want = n_layers if max_layers is None else max(1, min(max_layers, n_layers))
-        metas, blobs, have = [], [], 0
-        if trailer is not None:
-            if trailer[0][0] != off or zlib.crc32(data[:off]) != trailer[0][1]:
-                raise ValueError("container header/LL section corrupt (checksum mismatch)")
-            msz = struct.calcsize("<BI")
-            have = want
-            for q in range(want):
+    with span("container.parse"):
+        h, off = _read_header(data)
+        version, wv, levels, lead = h["version"], h["wv"], h["levels"], h["lead"]
+        llh, llw = h["ll_shape"]
+        n_layers, roi_shift, bg_shift, base_step = h["n_layers"], h["roi_shift"], h["bg_shift"], h["base_step"]
+        band_div = h["band_div"]
+        if version >= 9:
+            if len(band_div) != levels * 3 or any(d < 1 for d in band_div):
+                raise ValueError("container divisor table corrupt")
+            band_div = band_div if any(d != 1 for d in band_div) else ()
+        metadata, off = _read_metadata(data, off, version)
+        layered = h["layered"]
+        ll_dtype = np.int32 if wv in _INT_WAVELET_IDS else np.float32
+        if version >= 10:
+            ll_mode, ll_step, ll_nbytes = struct.unpack_from("<BfI", data, off)
+            off += struct.calcsize("<BfI")
+            if ll_mode not in (1, 2):
+                raise ValueError(f"unknown LL coding mode {ll_mode}")
+            codes = rice_decode(data[off : off + ll_nbytes], lead * llh * llw, np.int32).reshape(lead, llh, llw)
+            ll = (codes if ll_mode == 1 else codes.astype(np.float32) * ll_step).astype(ll_dtype)
+            off += ll_nbytes
+        else:
+            ll = np.frombuffer(data, dtype=ll_dtype, count=lead * llh * llw, offset=off)
+            ll = ll.reshape(lead, llh, llw).copy()
+            off += ll.nbytes
+        n_planes = levels * 3
+        n_units = 1 + n_planes * (n_layers if layered else 1)
+        trailer = _read_trailer(data, n_units)
+        if trailer is None:
+            scanned = _scan_trailer_units(data)
+            if scanned is not None and scanned != n_units:
+                raise ValueError(f"container header corrupt: trailer records {scanned} sections,"
+                                 f" header implies {n_units}")
+        corrupt: list[str] = []
+        if layered:
+            dirs = []
+            for _ in range(n_planes):
+                dirs.append(struct.unpack_from("<BII", data, off))
+                off += struct.calcsize("<BII")
+            want = n_layers if max_layers is None else max(1, min(max_layers, n_layers))
+            metas, blobs, have = [], [], 0
+            if trailer is not None:
+                if trailer[0][0] != off or zlib.crc32(data[:off]) != trailer[0][1]:
+                    raise ValueError("container header/LL section corrupt (checksum mismatch)")
+                msz = struct.calcsize("<BI")
+                have = want
+                for q in range(want):
+                    for i in range(n_planes):
+                        j = q * n_planes + i
+                        sec = data[trailer[j][0] : trailer[j + 1][0]]
+                        dt_code, sh, sw = dirs[i]
+                        if zlib.crc32(sec) != trailer[j + 1][1] or len(sec) < msz:
+                            corrupt.append(f"layer {q} plane {i}")
+                            metas.append(None)
+                            blobs.append(None)
+                            continue
+                        codec_id, nbytes = struct.unpack_from("<BI", sec, 0)
+                        metas.append((codec_id, dt_code if q == 0 else 0, sh, sw))
+                        blobs.append(sec[msz : msz + nbytes])
+                _raise_or_warn(corrupt, on_error)
+            else:
+                for q in range(want):
+                    layer_metas, layer_blobs = [], []
+                    try:
+                        for i in range(n_planes):
+                            codec_id, nbytes = struct.unpack_from("<BI", data, off)
+                            off += struct.calcsize("<BI")
+                            # a truncated checksummed file may leave trailer
+                            # fragments after the last whole layer
+                            if codec_id > _CODEC_RC or off + nbytes > len(data):
+                                raise struct.error("truncated blob")
+                            dt_code, sh, sw = dirs[i]
+                            layer_metas.append((codec_id, dt_code if q == 0 else 0, sh, sw))
+                            layer_blobs.append(data[off : off + nbytes])
+                            off += nbytes
+                    except struct.error:
+                        if allow_truncated and have >= 1:
+                            break
+                        raise ValueError(f"truncated layered container: {have}/{want} complete layers"
+                                         " (pass allow_truncated=True to decode the prefix)") from None
+                    metas.extend(layer_metas)
+                    blobs.extend(layer_blobs)
+                    have += 1
+        else:
+            metas, blobs = [], []
+            if trailer is not None:
+                if trailer[0][0] != off or zlib.crc32(data[:off]) != trailer[0][1]:
+                    raise ValueError("container header/LL section corrupt (checksum mismatch)")
+                msz = struct.calcsize("<BBIII")
                 for i in range(n_planes):
-                    j = q * n_planes + i
-                    sec = data[trailer[j][0] : trailer[j + 1][0]]
-                    dt_code, sh, sw = dirs[i]
-                    if zlib.crc32(sec) != trailer[j + 1][1] or len(sec) < msz:
-                        corrupt.append(f"layer {q} plane {i}")
+                    sec = data[trailer[i][0] : trailer[i + 1][0]]
+                    if zlib.crc32(sec) != trailer[i + 1][1] or len(sec) < msz:
+                        corrupt.append(f"plane {i}")
                         metas.append(None)
                         blobs.append(None)
                         continue
-                    codec_id, nbytes = struct.unpack_from("<BI", sec, 0)
-                    metas.append((codec_id, dt_code if q == 0 else 0, sh, sw))
+                    codec_id, dt_code, sh, sw, nbytes = struct.unpack_from("<BBIII", sec, 0)
+                    metas.append((codec_id, dt_code, sh, sw))
                     blobs.append(sec[msz : msz + nbytes])
-            _raise_or_warn(corrupt, on_error)
-        else:
-            for q in range(want):
-                layer_metas, layer_blobs = [], []
-                try:
-                    for i in range(n_planes):
-                        codec_id, nbytes = struct.unpack_from("<BI", data, off)
-                        off += struct.calcsize("<BI")
-                        # a truncated checksummed file may leave trailer
-                        # fragments after the last whole layer
-                        if codec_id > _CODEC_RC or off + nbytes > len(data):
-                            raise struct.error("truncated blob")
-                        dt_code, sh, sw = dirs[i]
-                        layer_metas.append((codec_id, dt_code if q == 0 else 0, sh, sw))
-                        layer_blobs.append(data[off : off + nbytes])
-                        off += nbytes
-                except struct.error:
-                    if allow_truncated and have >= 1:
-                        break
-                    raise ValueError(f"truncated layered container: {have}/{want} complete layers"
-                                     " (pass allow_truncated=True to decode the prefix)") from None
-                metas.extend(layer_metas)
-                blobs.extend(layer_blobs)
-                have += 1
-        subs = decode_all(metas, blobs)
+                _raise_or_warn(corrupt, on_error)
+                # a corrupt section loses its geometry; a level's three bands
+                # share shape and dtype, so take a sibling's
+                for i, m in enumerate(metas):
+                    if m is not None:
+                        continue
+                    lvl0 = i - i % 3
+                    sib = next((metas[j] for j in range(lvl0, lvl0 + 3) if metas[j] is not None), None)
+                    if sib is None:
+                        raise ValueError(f"all three subbands of level {i // 3 + 1} are corrupt —"
+                                         " plane geometry unrecoverable")
+                    metas[i] = (_CODEC_RICE, sib[1], sib[2], sib[3])
+                    blobs[i] = None
+            else:
+                for _ in range(n_planes):
+                    if version >= 4:
+                        codec_id, dt_code, sh, sw, nbytes = struct.unpack_from("<BBIII", data, off)
+                        off += struct.calcsize("<BBIII")
+                    else:
+                        dt_code, sh, sw, nbytes = struct.unpack_from("<BIII", data, off)
+                        off += struct.calcsize("<BIII")
+                        codec_id = _CODEC_RICE
+                    metas.append((codec_id, dt_code, sh, sw))
+                    blobs.append(data[off : off + nbytes])
+                    off += nbytes
+    count("container.deserialized_mp", h["orig_shape"][0] * h["orig_shape"][1] / 1e6)
+    with span("container.entropy_decode"):
+        decoded = decode_all(metas, blobs)
+    if layered:
+        subs = decoded
         missing = n_layers - have
         if roi_shift and missing >= roi_shift:
             raise ValueError(f"ROI stream truncated beyond its {roi_shift} guard bits ({missing} layers missing) —"
@@ -611,47 +672,7 @@ def deserialize(
             elif wv not in _INT_WAVELET_IDS:
                 base_step = base_step * float(1 << missing)  # a layer prefix is the coarser-step encode
     else:
-        metas, blobs = [], []
-        if trailer is not None:
-            if trailer[0][0] != off or zlib.crc32(data[:off]) != trailer[0][1]:
-                raise ValueError("container header/LL section corrupt (checksum mismatch)")
-            msz = struct.calcsize("<BBIII")
-            for i in range(n_planes):
-                sec = data[trailer[i][0] : trailer[i + 1][0]]
-                if zlib.crc32(sec) != trailer[i + 1][1] or len(sec) < msz:
-                    corrupt.append(f"plane {i}")
-                    metas.append(None)
-                    blobs.append(None)
-                    continue
-                codec_id, dt_code, sh, sw, nbytes = struct.unpack_from("<BBIII", sec, 0)
-                metas.append((codec_id, dt_code, sh, sw))
-                blobs.append(sec[msz : msz + nbytes])
-            _raise_or_warn(corrupt, on_error)
-            # a corrupt section loses its geometry; a level's three bands
-            # share shape and dtype, so take a sibling's
-            for i, m in enumerate(metas):
-                if m is not None:
-                    continue
-                lvl0 = i - i % 3
-                sib = next((metas[j] for j in range(lvl0, lvl0 + 3) if metas[j] is not None), None)
-                if sib is None:
-                    raise ValueError(f"all three subbands of level {i // 3 + 1} are corrupt —"
-                                     " plane geometry unrecoverable")
-                metas[i] = (_CODEC_RICE, sib[1], sib[2], sib[3])
-                blobs[i] = None
-        else:
-            for _ in range(n_planes):
-                if version >= 4:
-                    codec_id, dt_code, sh, sw, nbytes = struct.unpack_from("<BBIII", data, off)
-                    off += struct.calcsize("<BBIII")
-                else:
-                    dt_code, sh, sw, nbytes = struct.unpack_from("<BIII", data, off)
-                    off += struct.calcsize("<BIII")
-                    codec_id = _CODEC_RICE
-                metas.append((codec_id, dt_code, sh, sw))
-                blobs.append(data[off : off + nbytes])
-                off += nbytes
-        planes = decode_all(metas, blobs)
+        planes = decoded
         for i, p in enumerate(planes):
             if p is None:  # corrupt section -> zero band
                 _, dt_code, sh, sw = metas[i]

@@ -51,6 +51,7 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     dwt_multilevel_quant,
     idwt_multilevel_dequant,
 )
+from wicca_tpu_torch.utils.timing import spanned
 
 # wavelet -> filter of the tile-local lifting kernels: K6/K7, K8/K9
 _INT_TILED = {"legall5.3": "legall5.3", "cdf53": "legall5.3", "haar_int": "haar_int"}
@@ -143,6 +144,7 @@ def _encode_global(x: torch.Tensor, levels: int, spec: QuantSpec, wavelet: str, 
     return ll, details
 
 
+@spanned("codec.encode")
 def encode(
     image,
     levels: int = 5,
@@ -400,6 +402,7 @@ def _emit_native(stream: CodeStream, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0, (1 << stream.bit_depth) - 1).to(torch.int32).to(torch.uint16)
 
 
+@spanned("codec.decode")
 def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5) -> torch.Tensor:
     """CodeStream -> reconstructed image (original dims): float32, or int32
     for the integer wavelets; with ``emit_u8`` the stream's native unsigned

@@ -13,6 +13,8 @@ caller's stream. A pinned buffer lives until its copy has finished: each
 function returns only after its copy's event, holding its buffers until
 then.
 
+Every copy is a span of the link (``link.up`` or ``link.down``) and adds
+its bytes to the link's counters (:mod:`wicca_tpu_torch.utils.timing`).
 Every copy also feeds :func:`link_bandwidth`, the measured link rate of the
 folder pipeline's cost model (its bytes over the CUDA-event time between
 two events recorded around the copy on its stream).
@@ -68,6 +70,7 @@ from wicca_tpu_torch.ops.pack_cuda import SEG
 from wicca_tpu_torch.ops.pack_cuda import unzigzag as _unzigzag
 from wicca_tpu_torch.ops.pack_cuda import zigzag as _zigzag
 from wicca_tpu_torch.utils.ema import RateEMA
+from wicca_tpu_torch.utils.timing import count, span
 
 _PROBE_BYTES = 1 << 26
 _CAPS = (16, 64, 256, 512)  # per-segment escape capacity buckets
@@ -129,18 +132,23 @@ def _timed_copy(dev: torch.device, copy) -> list[torch.Tensor]:
 
 def _to_host(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     """CUDA tensors of one card -> pinned CPU tensors (one event wait)."""
-    outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    return _timed_copy(tensors[0].device, lambda: [h.copy_(t, non_blocking=True) for h, t in zip(outs, tensors)])
+    with span("link.down"):
+        count("link.down_bytes", sum(t.numel() * t.element_size() for t in tensors))
+        outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        return _timed_copy(tensors[0].device,
+                           lambda: [h.copy_(t, non_blocking=True) for h, t in zip(outs, tensors)])
 
 
 def _to_device(tensors: list[torch.Tensor], dev: torch.device) -> list[torch.Tensor]:
     """CPU tensors -> tensors on ``dev`` through pinned memory (one event
     wait on a card; a plain move for the CPU)."""
-    if dev.type != "cuda":
-        return [t.to(dev) for t in tensors]
-    pinned = [t.pin_memory() for t in tensors]  # alive until the event below has passed
-    outs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in tensors]  # on the caller's stream
-    return _timed_copy(dev, lambda: [d.copy_(p, non_blocking=True) for d, p in zip(outs, pinned)])
+    with span("link.up"):
+        count("link.up_bytes", sum(t.numel() * t.element_size() for t in tensors))
+        if dev.type != "cuda":
+            return [t.to(dev) for t in tensors]
+        pinned = [t.pin_memory() for t in tensors]  # alive until the event below has passed
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in tensors]  # on the caller's stream
+        return _timed_copy(dev, lambda: [d.copy_(p, non_blocking=True) for d, p in zip(outs, pinned)])
 
 
 def link_bandwidth(probe: bool = False, device=None) -> float | None:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from wicca_tpu_torch.data.validation import validate_image
+from wicca_tpu_torch.utils.timing import count, span
 
 IMAGE_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp"}
 
@@ -99,6 +100,16 @@ def from_planar(image_chw):
     return np.moveaxis(image_chw, 0, -1)
 
 
+def _load_spanned(path: Path) -> np.ndarray | None:
+    """:func:`load_image` as the span ``data.load_image`` (the file's name),
+    counting the megapixels decoded."""
+    with span("data.load_image", path.name):
+        image = load_image(path)
+        if image is not None:
+            count("data.decoded_mp", image.shape[0] * image.shape[1] / 1e6)
+        return image
+
+
 def iter_decoded(
     paths: Iterable[str | Path],
     num_threads: int = 8,
@@ -113,9 +124,9 @@ def iter_decoded(
         futures: dict[int, concurrent.futures.Future] = {}
         window = max(1, num_threads * max(1, prefetch))
         for i, p in enumerate(paths[:window]):
-            futures[i] = pool.submit(load_image, p)
+            futures[i] = pool.submit(_load_spanned, p)
         for i, p in enumerate(paths):
             nxt = i + window
             if nxt < len(paths):
-                futures[nxt] = pool.submit(load_image, paths[nxt])
+                futures[nxt] = pool.submit(_load_spanned, paths[nxt])
             yield p, futures.pop(i).result()

@@ -303,6 +303,7 @@ class ClassifierProcessor:
 
         batch_files: list[str] = []
         batch_images: list[np.ndarray] = []
+        batches = 0  # flushed so far: the per-batch spans' argument
 
         timer = StageTimer()
         pool = ThreadPoolExecutor(max_workers=self._classifier_workers(len(classifiers)),
@@ -322,10 +323,11 @@ class ClassifierProcessor:
             return rows
 
         def flush() -> None:
-            nonlocal timed_out
+            nonlocal timed_out, batches
             if not batch_files:
                 return
-            with timer.stage("icon_dwt"):
+            batches += 1
+            with timer.stage("icon_dwt", batches):
                 if self.compare == "reconstruction":
                     icons = [self._reconstruction(img, depth) for img in batch_images]
                 elif self.coder is not None and hasattr(self.coder, "get_small_copy"):
@@ -344,7 +346,8 @@ class ClassifierProcessor:
                 try:
                     if timed_out:
                         raise FutureTimeout()
-                    rows = future.result(timeout=remaining)
+                    with timer.stage("wait_classifiers", batches):
+                        rows = future.result(timeout=remaining)
                 except FutureTimeout:
                     if not future.cancel():  # running or done: abandon it
                         logging.warning(
@@ -391,14 +394,15 @@ class ClassifierProcessor:
         pool.shutdown(wait=False)
 
         out: dict[str, tuple[str, Any]] = {}
-        for name in classifiers:
-            if name in failed or not preds[name]:
-                continue
-            res_df = rsltmgr.get_short_comparison(preds[name], self.top)
-            res_df.index.name = "index"
-            sum_df = rsltmgr.summarize(res_df)
-            rsltmgr.save_results(self.results_folder, depth, name, res_df, sum_df)
-            out[name] = (name, sum_df)
+        with timer.stage("results"):
+            for name in classifiers:
+                if name in failed or not preds[name]:
+                    continue
+                res_df = rsltmgr.get_short_comparison(preds[name], self.top)
+                res_df.index.name = "index"
+                sum_df = rsltmgr.summarize(res_df)
+                rsltmgr.save_results(self.results_folder, depth, name, res_df, sum_df)
+                out[name] = (name, sum_df)
         self._write_run_metrics(depth, timer, n_pixels, time.time() - t_start, list(classifiers))
         return out
 

@@ -36,11 +36,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from wicca_tpu_torch._device import host_data_device
+from wicca_tpu_torch._device import download, host_data_device, upload
 from wicca_tpu_torch.config.aliases import ModelsDict
 from wicca_tpu_torch.config.constants import DEC_PRED, MODEL, PRE_INP, SHAPE
 from wicca_tpu_torch.models import flax_msgpack, interop, nasnet_keras, nets
 from wicca_tpu_torch.models.imagenet import decode_predictions
+from wicca_tpu_torch.utils.timing import count, span
 
 # ---------------------------------------------------------------------------
 # Preprocessing (per architecture, the Keras conventions)
@@ -71,9 +72,11 @@ class TorchClassifier:
 
     Each call copies the numpy batch to the model's device, runs the
     forward under ``torch.inference_mode()`` and copies the float32 logits
-    back. On a card a calling thread queues its work on a CUDA stream of its
-    own and waits only for its own copy back, so classifiers called from
-    several threads overlap on one card.
+    back: the spans ``model.upload``, ``model.forward`` (the forward's host
+    dispatch) and ``model.fetch``, and the counter ``model.images``. On a
+    card a calling thread queues its work on a CUDA stream of its own and
+    waits only for its own copy back, so classifiers called from several
+    threads overlap on one card.
     """
 
     def __init__(self, name: str, module: nn.Module, input_shape: tuple[int, int], device: torch.device):
@@ -90,10 +93,14 @@ class TorchClassifier:
         return s
 
     def _forward(self, batch: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32)).to(self.device)
-        with torch.inference_mode():
+        with span("model.upload"):
+            x = upload(np.asarray(batch, dtype=np.float32), self.device)
+        with span("model.forward"), torch.inference_mode():
             logits = self.module(x.permute(0, 3, 1, 2))
-        return logits.float().cpu().numpy()
+        with span("model.fetch"):
+            out = download(logits.float())
+        count("model.images", len(batch))
+        return out
 
     def __call__(self, batch: np.ndarray) -> np.ndarray:
         if self.device.type != "cuda":

@@ -26,7 +26,7 @@ composition.
 A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (``csrc/lifting_kernels.cu``, one launch per
 level) or raises; nothing falls back. Each launch adds one to
-:data:`LAUNCHES`.
+:data:`LAUNCHES`; each wrapper call is the span ``ops.<wrapper>``.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     _tiling,
     contiguous_aligned,
 )
+from wicca_tpu_torch.utils.timing import spanned
 
 # launches per wrapper since the last reset_launches()
 LAUNCHES = {"dwt53_multilevel": 0, "idwt53_multilevel": 0}
@@ -167,6 +168,7 @@ def _launch_fwd(lib, x: torch.Tensor, k: int, filt: str, stream: int, color: str
     return _unflatten(tuple(x.shape[:-2]), cur, details)
 
 
+@spanned("ops.dwt53_multilevel")
 def dwt53_multilevel(x: torch.Tensor, k: int, filt: str = "legall5.3", color: str = "none"):
     """K6: :func:`dwt53_multilevel_plain` as one launch per level; the tile
     padding of the input is an index clamp in the kernel, and the RCT
@@ -262,6 +264,7 @@ def _launch_inv(lib, ll: torch.Tensor, details, k: int, emit_u8: bool, orig_k: i
     return cur.reshape(tuple(ll.shape[:-2]) + cur.shape[-2:])
 
 
+@spanned("ops.idwt53_multilevel")
 def idwt53_multilevel(ll: torch.Tensor, details, k: int, emit_u8: bool = False, orig_k: int | None = None,
                       filt: str = "legall5.3", color: str = "none") -> torch.Tensor:
     """K7: :func:`idwt53_multilevel_plain` as one launch per level; the

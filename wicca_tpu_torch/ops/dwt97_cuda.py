@@ -33,7 +33,7 @@ composition.
 A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (``csrc/lifting_float_kernels.cu``, one launch
 per level) or raises; nothing falls back. Each launch adds one to
-:data:`LAUNCHES`.
+:data:`LAUNCHES`; each wrapper call is the span ``ops.<wrapper>``.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     _tiling,
     contiguous_aligned,
 )
+from wicca_tpu_torch.utils.timing import spanned
 
 # launches per wrapper since the last reset_launches()
 LAUNCHES = {"dwt97_multilevel_quant": 0, "idwt97_multilevel_dequant": 0}
@@ -231,6 +232,7 @@ def _launch_fwd(lib, x: torch.Tensor, steps: tuple, filt: str, stream: int, colo
     return _unflatten(tuple(x.shape[:-2]), cur, details)
 
 
+@spanned("ops.dwt97_multilevel_quant")
 def dwt97_multilevel_quant(x: torch.Tensor, steps: tuple, filt: str = "cdf97", color: str = "none",
                            chroma_gain: float = 1.0):
     """K8: :func:`dwt97_multilevel_quant_plain` as one launch per level; the
@@ -334,6 +336,7 @@ def _launch_inv(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, ori
     return cur.reshape(tuple(ll.shape[:-2]) + cur.shape[-2:])
 
 
+@spanned("ops.idwt97_multilevel_dequant")
 def idwt97_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: bool = False,
                               orig_k: int | None = None, filt: str = "cdf97", recon_offset: float = 0.5,
                               color: str = "none", chroma_gain: float = 1.0) -> torch.Tensor:

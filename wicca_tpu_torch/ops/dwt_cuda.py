@@ -16,7 +16,8 @@ Each wrapper, its plain twin, and the TPU kernel it replaces
 
 A wrapper takes its plain twin only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (``csrc/haar_kernels.cu``) or raises; nothing
-falls back. Each launch adds one to :data:`LAUNCHES`.
+falls back. Each launch adds one to :data:`LAUNCHES`; each wrapper call is
+the span ``ops.<wrapper>`` (:mod:`wicca_tpu_torch.utils.timing`).
 
 K1-K3 work on semantic extents: for the pair-local Haar transform the JAX
 kernels' (512, 1024) tile padding never reaches a stored stream (the codec
@@ -37,6 +38,7 @@ import torch
 
 from wicca_tpu_torch.core.haar import _interleave, idwt2_level
 from wicca_tpu_torch.ops import _build
+from wicca_tpu_torch.utils.timing import spanned
 
 # launches per wrapper since the last reset_launches()
 LAUNCHES = {"icon": 0, "dwt_multilevel_quant": 0, "idwt_multilevel_dequant": 0, "dwt_level_quant": 0,
@@ -189,6 +191,7 @@ def _launch_icon(lib, x: torch.Tensor, depth: int, stream: int) -> torch.Tensor:
     return out
 
 
+@spanned("ops.icon")
 def icon(x: torch.Tensor, depth: int) -> torch.Tensor:
     """K1: icon of a padded planar ``(..., H, W)`` uint8 tensor, H and W
     divisible by ``2**depth``. One launch up to depth 6, then one launch per
@@ -283,6 +286,7 @@ def _launch_dwt(lib, x: torch.Tensor, steps: tuple, stream: int):
     return ll, [tuple(dets[i * 3 : i * 3 + 3]) for i in range(k)]
 
 
+@spanned("ops.dwt_multilevel_quant")
 def dwt_multilevel_quant(x: torch.Tensor, steps: tuple):
     """K2: one fused pass of :func:`dwt_multilevel_quant_plain`; ``x`` is
     ``(..., H, W)`` uint8 or float32 with H, W divisible by ``2**len(steps)``."""
@@ -392,6 +396,7 @@ def _launch_idwt(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, re
     return out
 
 
+@spanned("ops.idwt_multilevel_dequant")
 def idwt_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: bool = False,
                             recon_offset: float = 0.5) -> torch.Tensor:
     """K3: one fused pass of :func:`idwt_multilevel_dequant_plain`."""
@@ -455,6 +460,7 @@ def _launch_dwt_level(lib, x: torch.Tensor, step: float, quantize: bool, stream:
     return (ll, *bands)
 
 
+@spanned("ops.dwt_level_quant")
 def dwt_level_quant(x: torch.Tensor, step: float = 1.0, quantize: bool = True):
     """K4: :func:`dwt_level_quant_plain` in one launch; the tile padding is
     an index clamp in the kernel."""
@@ -518,6 +524,7 @@ def _launch_idwt_level(lib, ll: torch.Tensor, bands, step: float, quantize: bool
     return out
 
 
+@spanned("ops.idwt_level_dequant")
 def idwt_level_dequant(ll: torch.Tensor, lh, hl, hh, step: float = 1.0, quantize: bool = True) -> torch.Tensor:
     """K5: :func:`idwt_level_dequant_plain` in one launch; the padding is an
     index clamp in the kernel."""

@@ -21,7 +21,7 @@ Codes are held as int32 here: torch has no uint16 arithmetic.
 A wrapper takes its plain twin only for tensors on the CPU. For CUDA
 tensors it launches its kernel (``csrc/pack_kernels.cu``), once per
 :data:`MAX_PLANES` planes, or raises; nothing falls back. Each launch adds
-one to :data:`LAUNCHES`.
+one to :data:`LAUNCHES`; each wrapper call is the span ``ops.<wrapper>``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 
 from wicca_tpu_torch.ops import _build
 from wicca_tpu_torch.ops.dwt_cuda import _require_cuda, _stream, contiguous_aligned
+from wicca_tpu_torch.utils.timing import spanned
 
 SEG = 4096  # escape-compaction segment (samples); kSeg in csrc/pack_kernels.cuh
 MAX_PLANES = 40  # planes per launch; kMaxPlanes there
@@ -188,6 +189,7 @@ def _checked(name: str, planes) -> list:
     return planes
 
 
+@spanned("ops.pack1_stats")
 def pack1_stats(planes) -> torch.Tensor:
     """P1 over a stream's int8/int16 detail planes (one launch per
     :data:`MAX_PLANES` planes)."""
@@ -263,6 +265,7 @@ def _check_kcs(planes, kcs) -> None:
             raise ValueError(f"(k, cap) = {(k, cap)} for a {width}-bit plane")
 
 
+@spanned("ops.pack1_pack")
 def pack1_pack(planes, kcs, ll: torch.Tensor) -> torch.Tensor:
     """P2: the packed buffer of a stream (one launch per :data:`MAX_PLANES`
     parts, the LL being one)."""
@@ -353,6 +356,7 @@ def _check_layout(buf: torch.Tensor, layout) -> None:
             raise ValueError(f"pack1_unpack: plane {u} reaches byte {end} of a {buf.numel()}-byte buffer")
 
 
+@spanned("ops.pack1_unpack")
 def pack1_unpack(buf: torch.Tensor, layout) -> list[torch.Tensor]:
     """P3: the planes of an upload buffer (one launch per
     :data:`MAX_PLANES` planes), on the buffer's device."""
