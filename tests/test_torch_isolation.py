@@ -270,6 +270,28 @@ def test_kernels_equal_plain_twins_on_the_card():
 
 
 @pytest.mark.cuda
+def test_codec_launch_plans_on_the_card():
+    """On a card: ``encode`` and ``decode`` of plain 8-bit Haar take the
+    launch plans (two K2 and two K3 launches at depth 5) and equal the plain
+    route on the CPU, at sizes that pad, from uint8 and float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    rng = np.random.default_rng(1)
+    for shape, dtype, levels in (((3, 64, 96), np.uint8, 5), ((2, 3, 45, 83), np.uint8, 5), ((70, 130), np.float32, 6)):
+        x = torch.from_numpy((rng.random(shape) * 255).astype(dtype))
+        spec = QuantSpec(base_step=0.75, hh_gain=1.5)
+        dwt_cuda.reset_launches()
+        st = encode(x.cuda(), levels=levels, spec=spec)
+        rec = decode(st, emit_u8=True, recon_offset=0.3)
+        assert dwt_cuda.LAUNCHES["dwt_multilevel_quant"] == dwt_cuda.LAUNCHES["idwt_multilevel_dequant"] == 2
+        want = encode(x, levels=levels, spec=spec)
+        for got, exp in zip([st.ll, *(b for bands in st.details for b in bands)],
+                            [want.ll, *(b for bands in want.details for b in bands)]):
+            assert torch.equal(got.cpu(), exp)
+        assert torch.equal(rec.cpu(), decode(want, emit_u8=True, recon_offset=0.3))
+
+
+@pytest.mark.cuda
 def test_container_roundtrip_on_the_card():
     """On a card: a stream on the card serializes to the bytes of the same
     stream on the CPU and loads back onto the card, equal plane by plane

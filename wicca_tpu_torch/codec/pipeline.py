@@ -22,6 +22,20 @@ scalability), ``decode_region`` (spatial random access) and
 maxshift ROI coding (:mod:`wicca_tpu_torch.codec.roi`) first;
 ``with_metadata`` attaches application metadata, which decode ignores.
 
+Plain 8-bit Haar on a card (``wavelet='haar'``, ``color='none'``, bit depth
+8, uint8 or float32 input; on decode a stream without ROI coding or R-D
+divisors, not a mesh stream) takes a launch plan: one per geometry and
+setting, built on the first call and kept in a bounded LRU (64 each for
+``encode`` and ``decode``). A plan holds the pass partition, every output's
+shape and dtype and the kernels' packed step arrays, never a tensor: each
+call checks its tensors once, allocates fresh outputs and queues the K2 or
+K3 launches, so a stream or image a caller holds never changes under a
+later call. Outputs, launch counts and refusals are those of the per-pass
+code, which every other input keeps (the plain twins on the CPU, the
+lifting wavelets, colour, ROI, R-D and mesh streams). Each call through a
+plan counts ``codec.plan_hit`` or ``codec.plan_miss``
+(:mod:`wicca_tpu_torch.utils.timing`).
+
 Every level partition, shape and rounding step follows the JAX package, so
 streams cross between the two (:mod:`wicca_tpu_torch.codec.interop`). The
 float wavelets agree with it within the tolerance stated in
@@ -31,7 +45,9 @@ some lifting products into fused multiply-adds, depending on the shape.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -40,18 +56,23 @@ from wicca_tpu_torch._device import as_tensor
 from wicca_tpu_torch.comm import gather_stream
 from wicca_tpu_torch.core.color import ict_fwd_codec, ict_inv_codec, rct_fwd_codec, rct_inv_codec
 from wicca_tpu_torch.core.lifting import dwt2_level_lifting, idwt2_level_lifting, is_integer_wavelet, lifting_wavelets
-from wicca_tpu_torch.core.pad import pad_to_multiple, unpad
+from wicca_tpu_torch.core.pad import normalize_border_mode, pad_amounts, pad_to_multiple, unpad
 from wicca_tpu_torch.core.quant import QuantSpec, dequantize_deadzone, quantize_deadzone
 from wicca_tpu_torch.ops.dwt53_cuda import dwt53_multilevel, idwt53_multilevel
 from wicca_tpu_torch.ops.dwt97_cuda import dwt97_multilevel_quant, idwt97_multilevel_dequant
 from wicca_tpu_torch.ops.dwt_cuda import (
     _TILE_H,
     _TILE_W,
+    DwtPass,
+    IdwtPass,
+    _band_steps3,
+    _check_dwt,
     contiguous_aligned,
     dwt_multilevel_quant,
     idwt_multilevel_dequant,
+    launch_on_card,
 )
-from wicca_tpu_torch.utils.timing import spanned
+from wicca_tpu_torch.utils.timing import count, spanned
 
 # wavelet -> filter of the tile-local lifting kernels: K6/K7, K8/K9
 _INT_TILED = {"legall5.3": "legall5.3", "cdf53": "legall5.3", "haar_int": "haar_int"}
@@ -144,6 +165,163 @@ def _encode_global(x: torch.Tensor, levels: int, spec: QuantSpec, wavelet: str, 
     return ll, details
 
 
+# ---------------------------------------------------------------------------
+# Launch plans of the fused 8-bit Haar path
+# ---------------------------------------------------------------------------
+
+# device types whose tensors take the launch plans, and what launches a plan there
+_PLAN_LAUNCH = {"cuda": launch_on_card}
+_MISSING = object()
+
+
+class _PlanCache:
+    """The launch plans of the last ``size`` geometries (least recently used
+    out), built by ``build(*key)`` on a miss. A plan holds shapes, dtypes
+    and packed launch arguments, never a tensor. ``build`` returns None for
+    a geometry the plan path does not take; that is kept too, and counts as
+    neither a hit nor a miss."""
+
+    def __init__(self, build, size: int = 64):
+        self._build, self._size = build, size
+        self._plans: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        with self._lock:
+            plan = self._plans.get(key, _MISSING)
+            if plan is not _MISSING:
+                self._plans.move_to_end(key)
+        if plan is _MISSING:
+            plan = self._build(*key)
+            with self._lock:
+                self._plans[key] = plan
+                if len(self._plans) > self._size:
+                    self._plans.popitem(last=False)
+            if plan is not None:
+                count("codec.plan_miss", 1)
+        elif plan is not None:
+            count("codec.plan_hit", 1)
+        return plan
+
+    def clear(self) -> None:
+        with self._lock:
+            self._plans.clear()
+
+
+class _EncodePlan:
+    """K2's launches for one input geometry and setting: whether the input
+    needs padding to ``2**levels``, and each pass's packed launch. The
+    checks the pass code makes run here, once, with the same messages."""
+
+    __slots__ = ("pad", "passes")
+
+    def __init__(self, shape, dtype, index, levels, spec, mode):  # the device index only keys the plan
+        if levels < 1:
+            raise ValueError("levels must be >= 1")
+        normalize_border_mode(mode)
+        dr, dc = pad_amounts(shape[-2], shape[-1], 1 << levels)
+        self.pad = bool(dr or dc)
+        shape, lvl, self.passes = tuple(shape[:-2]) + (shape[-2] + dr, shape[-1] + dc), 0, []
+        for k in _pass_sizes(levels):
+            steps = tuple(spec.band_steps(lvl + i + 1) for i in range(k))
+            _check_dwt(torch.empty(shape, dtype=dtype, device="meta"), steps)
+            self.passes.append(DwtPass(shape, dtype, _band_steps3(steps), stack=True))
+            shape, dtype, lvl = self.passes[-1].ll_shape, torch.float32, lvl + k
+
+    def launch(self, lib, x: torch.Tensor, stream: int):
+        """The passes fine to coarse on the padded, checked input: every
+        pass's LL and bands already have their semantic extents."""
+        details = []
+        for p in self.passes:
+            x, dets = p.launch(lib, x, stream)
+            details.extend(dets)
+        return x, details
+
+
+class _DecodePlan:
+    """K3's launches for one stream geometry and setting: each pass's levels
+    ``(lo, hi)`` and packed launch, coarse to fine, and whether the result
+    is cropped to the original dims."""
+
+    __slots__ = ("passes", "crop")
+
+    def __init__(self, passes: list, crop: bool):
+        self.passes, self.crop = passes, crop
+
+    def launch(self, lib, ll: torch.Tensor, details, stream: int) -> torch.Tensor:
+        for lo, hi, p in self.passes:
+            ll = p.launch(lib, ll, details[lo:hi], stream)
+        return ll
+
+
+def _decode_plan(ll_sig, band_sigs, levels, spec, emit_u8, recon_offset, orig_shape):
+    """The plan of a stream's geometry (signatures ``(shape, dtype, device
+    index)``), or None unless the stream is laid out as the encoder writes
+    it: a float32 LL, each level's three bands of one code dtype at twice
+    the next coarser extent, all on one device. Any other stream takes the
+    pass code, which crops, casts or refuses it as it always has."""
+    shape, dtype, index = ll_sig
+    if dtype != torch.float32 or len(shape) < 2 or 0 in shape or levels < 1 or len(band_sigs) != levels:
+        return None
+    lead, ch, cw = tuple(shape[:-2]), shape[-2], shape[-1]
+    codes = []
+    for lvl, sigs in enumerate(band_sigs, start=1):
+        if len(sigs) != 3:
+            return None
+        want = (lead + (ch << (levels - lvl), cw << (levels - lvl)), sigs[0][1], index)
+        if want[1] not in (torch.int8, torch.int16) or any(s != want for s in sigs):
+            return None
+        codes.append(want[1])
+    passes = []
+    for lo, hi in reversed(_pass_partition(levels)):
+        steps = _band_steps3(tuple(spec.band_steps(lvl + 1) for lvl in range(lo, hi)))
+        pshape = lead + (ch << (levels - hi), cw << (levels - hi))
+        passes.append((lo, hi, IdwtPass(pshape, codes[lo:hi], steps, bool(emit_u8) and lo == 0, recon_offset)))
+    return _DecodePlan(passes, orig_shape[0] < ch << levels or orig_shape[1] < cw << levels)
+
+
+_ENCODE_PLANS = _PlanCache(_EncodePlan)
+_DECODE_PLANS = _PlanCache(_decode_plan)
+
+
+def _sig(t: torch.Tensor):
+    return t.shape, t.dtype, t.get_device()
+
+
+def _encode_planned(x: torch.Tensor, levels, spec, mode, constant, chroma_gain) -> CodeStream:
+    """``encode`` of an 8-bit Haar image without color transform on a
+    device with launch plans: the plan of the input's geometry, then only
+    the padding (where the plan says so), one check of the input (copied
+    where it is not contiguous and 16-byte aligned) and the launches."""
+    plan = _ENCODE_PLANS.get((x.shape, x.dtype, x.get_device(), levels, spec, mode))
+    orig = (x.shape[-2], x.shape[-1])
+    if plan.pad:
+        x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
+    x = contiguous_aligned(x)
+    ll, details = _PLAN_LAUNCH[x.device.type](x.get_device(), plan.launch, x)
+    return CodeStream(ll=ll, details=tuple(details), spec=spec, levels=levels, orig_shape=orig,
+                      chroma_gain=chroma_gain)
+
+
+def _decode_planned(stream: CodeStream, emit_u8, recon_offset) -> torch.Tensor | None:
+    """``decode`` of a plain 8-bit Haar stream on a device with launch plans
+    (no color transform, ROI or R-D divisors, not a mesh stream, laid out as
+    the encoder writes it): its tensors checked once, copied where they are
+    not contiguous and 16-byte aligned, and the launches. None for any other
+    stream."""
+    ll = stream.ll
+    if (stream.wavelet != "haar" or stream.bit_depth != 8 or stream.color != "none" or stream.roi_shift
+            or stream.band_div or type(ll) is not torch.Tensor or ll.device.type not in _PLAN_LAUNCH):
+        return None
+    sigs = tuple(tuple(map(_sig, bands)) for bands in stream.details)
+    plan = _DECODE_PLANS.get((_sig(ll), sigs, stream.levels, stream.spec, emit_u8, recon_offset, stream.orig_shape))
+    if plan is None:
+        return None
+    details = [tuple(map(contiguous_aligned, bands)) for bands in stream.details]
+    x = _PLAN_LAUNCH[ll.device.type](ll.get_device(), plan.launch, contiguous_aligned(ll), details)
+    return unpad(x, *stream.orig_shape) if plan.crop else x
+
+
 @spanned("codec.encode")
 def encode(
     image,
@@ -175,8 +353,16 @@ def encode(
     ``chroma_gain`` times coarser. ``bit_depth`` (default: 16 for uint16
     input, else 8) above 8 takes the whole-image lifting path with int32
     codes; ``decode(emit_u8=True)`` then emits uint16 clipped to
-    ``2**bit_depth - 1``."""
+    ``2**bit_depth - 1``.
+
+    Plain 8-bit Haar of a uint8 or float32 tensor on a card takes the launch
+    plan of its geometry (see the module docstring): the same stream, with
+    only the padding, one check of the input and the two K2 launches per
+    call."""
     x = as_tensor(image, device)
+    if (wavelet == "haar" and color == "none" and bit_depth in (None, 8) and type(x) is torch.Tensor
+            and x.device.type in _PLAN_LAUNCH and x.dtype in (torch.uint8, torch.float32)):
+        return _encode_planned(x, levels, spec, mode, constant, chroma_gain)
     if bit_depth is None:
         bit_depth = 16 if x.dtype == torch.uint16 else 8
     if x.dtype == torch.uint16:  # few ops take uint16; int32 holds every sample
@@ -411,7 +597,12 @@ def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5)
     high-bit-depth streams). ``recon_offset``
     is the deadzone reconstruction point of lossy codes as a fraction of the
     bin (0.5 = midpoint). Runs where the stream's tensors lie; a mesh
-    stream is gathered first (:func:`~wicca_tpu_torch.comm.gather_stream`)."""
+    stream is gathered first (:func:`~wicca_tpu_torch.comm.gather_stream`).
+    A plain 8-bit Haar stream on a card, laid out as :func:`encode` writes
+    it, takes the launch plan of its geometry (see the module docstring)."""
+    planned = _decode_planned(stream, emit_u8, recon_offset)
+    if planned is not None:
+        return planned
     stream = _widen_div_int(_normalize_roi(gather_stream(stream)))
     folded = _folds_color(stream, 0)
     x = _inverse(stream, 0, emit_u8 and (stream.color == "none" or folded), recon_offset)

@@ -19,6 +19,13 @@ tensor it launches its kernel (``csrc/haar_kernels.cu``) or raises; nothing
 falls back. Each launch adds one to :data:`LAUNCHES`; each wrapper call is
 the span ``ops.<wrapper>`` (:mod:`wicca_tpu_torch.utils.timing`).
 
+K2's and K3's launches are :class:`DwtPass` and :class:`IdwtPass`: one
+pass of a fixed geometry with its launch arguments packed once, holding no
+tensor. The wrappers build one per call; the codec's launch plans
+(:mod:`wicca_tpu_torch.codec.pipeline`) keep them per geometry and launch
+them through :func:`launch_on_card`, without the wrappers' checks and
+spans, counting each launch in :data:`LAUNCHES` all the same.
+
 K1-K3 work on semantic extents: for the pair-local Haar transform the JAX
 kernels' (512, 1024) tile padding never reaches a stored stream (the codec
 crops it away). K4 and K5 are public ops whose output shapes show that
@@ -132,6 +139,20 @@ def contiguous_aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_on_card(index: int, launch, *args):
+    """``launch(lib, *args, stream)`` with the kernel library and the current
+    stream of card ``index``, inside that card's device context only when
+    another card is current. The raw stream comes from the call torch's own
+    generated code uses (``torch._C._cuda_getCurrentRawStream``), where this
+    torch has it."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    stream = raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+    if torch.cuda.current_device() == index:
+        return launch(_build.library(), *args, stream)
+    with torch.cuda.device(index):
+        return launch(_build.library(), *args, stream)
 
 
 # ---------------------------------------------------------------------------
@@ -262,28 +283,59 @@ def dwt_multilevel_quant_plain(x: torch.Tensor, steps: tuple):
     return ll, details
 
 
+class DwtPass:
+    """One K2 launch of a fixed geometry with its arguments packed once: the
+    input's shape and dtype and the pass's (lh, hl, hh) step triples fix
+    every output's shape and dtype and the kernel's step and width arrays.
+    It holds no tensor; :meth:`launch` allocates fresh outputs each call.
+
+    With ``stack``, a level whose bands each fill a multiple of 16 bytes is
+    one ``(3, ..., h, w)`` allocation, its bands the three views of
+    ``unbind(0)``, made after the launch: three fewer allocations before
+    the kernel is queued."""
+
+    __slots__ = ("k", "u8", "planes", "h", "w", "levels", "ll_shape", "invs", "is16")
+
+    def __init__(self, shape, dtype, steps: tuple, stack: bool = False):
+        k = len(steps)
+        lead, h, w = tuple(shape[:-2]), shape[-2], shape[-1]
+        dts = [_detail_dtype(min(s))[0] for s in steps]
+        self.k, self.u8, self.planes, self.h, self.w = k, int(dtype == torch.uint8), _planes(shape), h >> k, w >> k
+        self.levels = []  # (band shape, dtype, bytes a band where the level is one allocation, else None)
+        for lvl, dt in enumerate(dts, start=1):
+            band = lead + (h >> lvl, w >> lvl)
+            size = math.prod(band) * dt.itemsize
+            self.levels.append((band, dt, size if stack and size % 16 == 0 else None))
+        self.ll_shape = lead + (h >> k, w >> k)
+        self.invs = (ctypes.c_float * 9)(*(_inv(s) for lvl in steps for s in lvl))
+        self.is16 = (ctypes.c_int * 3)(*(int(dt == torch.int16) for dt in dts))
+
+    def launch(self, lib, x: torch.Tensor, stream: int):
+        """K2 through ``lib`` on ``stream`` (``x`` of this geometry, checked):
+        ``(ll_f32, [(lh, hl, hh), ...])`` fine to coarse."""
+        dev = x.device
+        outs, ptrs = [], []
+        for band, dt, size in self.levels:
+            if size is None:
+                out = tuple(torch.empty(band, dtype=dt, device=dev) for _ in range(3))
+                ptrs += [b.data_ptr() for b in out]
+            else:
+                out = torch.empty((3,) + band, dtype=dt, device=dev)
+                p = out.data_ptr()
+                ptrs += [p, p + size, p + 2 * size]
+            outs.append(out)
+        ll = torch.empty(self.ll_shape, dtype=torch.float32, device=dev)
+        rc = lib.wicca_dwt_quant(x.data_ptr(), self.u8, self.planes, self.h, self.w, self.k,
+                                 (ctypes.c_void_p * 9)(*ptrs), ll.data_ptr(), self.invs, self.is16, stream)
+        _build.check(rc, "dwt_multilevel_quant")
+        LAUNCHES["dwt_multilevel_quant"] += 1
+        return ll, [out if type(out) is tuple else out.unbind(0) for out in outs]
+
+
 def _launch_dwt(lib, x: torch.Tensor, steps: tuple, stream: int):
     """K2's launch through ``lib`` on ``stream`` (``x`` already checked;
     ``steps`` in (lh, hl, hh) triples)."""
-    k = len(steps)
-    lead = tuple(x.shape[:-2])
-    planes = _planes(x.shape)
-    h, w = x.shape[-2], x.shape[-1]
-    dts = [_detail_dtype(min(s))[0] for s in steps]
-    dets = [
-        torch.empty(lead + (h >> lvl, w >> lvl), dtype=dts[lvl - 1], device=x.device)
-        for lvl in range(1, k + 1)
-        for _ in range(3)
-    ]
-    ll = torch.empty(lead + (h >> k, w >> k), dtype=torch.float32, device=x.device)
-    ptrs = (ctypes.c_void_p * 9)(*(d.data_ptr() for d in dets))
-    invs = (ctypes.c_float * 9)(*(_inv(s) for lvl in steps for s in lvl))
-    is16 = (ctypes.c_int * 3)(*(int(dt == torch.int16) for dt in dts))
-    rc = lib.wicca_dwt_quant(x.data_ptr(), int(x.dtype == torch.uint8), planes, h >> k, w >> k, k, ptrs,
-                             ll.data_ptr(), invs, is16, stream)
-    _build.check(rc, "dwt_multilevel_quant")
-    LAUNCHES["dwt_multilevel_quant"] += 1
-    return ll, [tuple(dets[i * 3 : i * 3 + 3]) for i in range(k)]
+    return DwtPass(x.shape, x.dtype, steps).launch(lib, x, stream)
 
 
 @spanned("ops.dwt_multilevel_quant")
@@ -377,23 +429,41 @@ def idwt_multilevel_dequant_plain(ll: torch.Tensor, details, steps: tuple, emit_
     return x
 
 
+class IdwtPass:
+    """One K3 launch of a fixed geometry with its arguments packed once: the
+    LL's shape, each level's code dtype, the step triples, ``emit_u8`` and
+    ``recon_offset`` fix the output and the kernel's step and width arrays.
+    It holds no tensor; :meth:`launch` allocates a fresh output each call."""
+
+    __slots__ = ("k", "planes", "ch", "cw", "out_shape", "out_dtype", "steps", "is16", "offset", "u8")
+
+    def __init__(self, ll_shape, code_dtypes, steps: tuple, emit_u8: bool, recon_offset: float):
+        k = len(steps)
+        self.k, self.planes, self.ch, self.cw = k, _planes(ll_shape), ll_shape[-2], ll_shape[-1]
+        self.out_shape = tuple(ll_shape[:-2]) + (self.ch << k, self.cw << k)
+        self.out_dtype = torch.uint8 if emit_u8 else torch.float32
+        self.steps = (ctypes.c_float * 9)(*(_f32(s) for lvl in steps for s in lvl))
+        self.is16 = (ctypes.c_int * 3)(*(int(dt == torch.int16) for dt in code_dtypes))
+        self.offset, self.u8 = _f32(recon_offset), int(emit_u8)
+
+    def launch(self, lib, ll: torch.Tensor, details, stream: int) -> torch.Tensor:
+        """K3 through ``lib`` on ``stream`` (``ll`` and ``details``, fine to
+        coarse, of this geometry, checked)."""
+        out = torch.empty(self.out_shape, dtype=self.out_dtype, device=ll.device)
+        ptrs = (ctypes.c_void_p * 9)(*(b.data_ptr() for bands in details for b in bands))
+        rc = lib.wicca_idwt_dequant(ll.data_ptr(), ptrs, self.is16, self.steps, self.offset, self.k, self.planes,
+                                    self.ch, self.cw, out.data_ptr(), self.u8, stream)
+        _build.check(rc, "idwt_multilevel_dequant")
+        LAUNCHES["idwt_multilevel_dequant"] += 1
+        return out
+
+
 def _launch_idwt(lib, ll: torch.Tensor, details, steps: tuple, emit_u8: bool, recon_offset: float,
                  stream: int) -> torch.Tensor:
     """K3's launch through ``lib`` on ``stream`` (inputs already checked;
     ``steps`` in (lh, hl, hh) triples)."""
-    k = len(steps)
-    planes = _planes(ll.shape)
-    ch, cw = ll.shape[-2], ll.shape[-1]
-    out = torch.empty(tuple(ll.shape[:-2]) + (ch << k, cw << k),
-                      dtype=torch.uint8 if emit_u8 else torch.float32, device=ll.device)
-    ptrs = (ctypes.c_void_p * 9)(*(b.data_ptr() for bands in details for b in bands))
-    stp = (ctypes.c_float * 9)(*(_f32(s) for lvl in steps for s in lvl))
-    is16 = (ctypes.c_int * 3)(*(int(bands[0].dtype == torch.int16) for bands in details))
-    rc = lib.wicca_idwt_dequant(ll.data_ptr(), ptrs, is16, stp, _f32(recon_offset), k, planes, ch, cw,
-                                out.data_ptr(), int(emit_u8), stream)
-    _build.check(rc, "idwt_multilevel_dequant")
-    LAUNCHES["idwt_multilevel_dequant"] += 1
-    return out
+    return IdwtPass(ll.shape, [bands[0].dtype for bands in details], steps, emit_u8,
+                    recon_offset).launch(lib, ll, details, stream)
 
 
 @spanned("ops.idwt_multilevel_dequant")
