@@ -3,7 +3,8 @@
 ``ResNet50``, ``EfficientNetB0``, ``NASNetMobile`` (the paper's cells; the
 registry's checkpoint graph is :mod:`wicca_tpu_torch.models.nasnet_keras`),
 ``VGG`` (``VGG16``, ``VGG19``), ``DenseNet121`` and ``ViT`` (``ViTS16``,
-``ViTTiny16``), at their published widths.
+``ViTTiny16``), at their published widths; and ``SwinTransformer``
+(``SwinL384``), which the JAX package does not have.
 
 Every model takes an NCHW float32 batch and returns float32 logits. The
 Flax modules' numerics are mirrored:
@@ -25,8 +26,13 @@ Flax modules' numerics are mirrored:
   matmuls and a softmax;
 * VGG flattens its last feature map in NHWC order, as the Flax model does.
 
+The Swin Transformer follows the published model instead (LayerNorm epsilon
+1e-5, exact GELU, its module names) and computes as the zoo does: bfloat16
+matmuls, float32 norms and residual stream.
+
 VGG's first dense layer and ViT's position embedding depend on the input
-size, so those two take ``image_size``; so do the NASNets, whose cells pick
+size, so those two take ``image_size``; so do Swin, whose windows and
+shift masks follow the token grid, and the NASNets, whose cells pick
 their ``adjust`` path from the input's geometry (:class:`Compact`).
 Parameters are created empty: :func:`init_weights` fills them
 deterministically from a ``torch.Generator`` (values differ from JAX's
@@ -41,6 +47,8 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wicca_tpu_torch.utils.timing import count, span
 
 _RESNET_EPS = 1.001e-5  # keras.applications ResNet/DenseNet BN epsilon
 
@@ -691,6 +699,253 @@ def ViTTiny16(image_size=(224, 224), **kw) -> ViT:
 
 
 # ---------------------------------------------------------------------------
+# Swin Transformer (Liu et al. 2021, arXiv:2103.14030)
+# ---------------------------------------------------------------------------
+
+_SWIN_EPS = 1e-5  # Swin's LayerNorm epsilon (torch's default), not Flax's 1e-6
+_SWIN_MASKED = -100.0  # the shift mask's score between tokens of different regions
+
+
+def swin_stages(image_size, patch: int, stages: int, window: int) -> list[tuple[tuple[int, int], int, int]]:
+    """Each stage's token grid (h, w), window and shift at ``image_size``:
+    the window is ``min(window, h, w)``, and a stage whose window is the
+    whole grid's shorter side shifts by 0, any other by ``window // 2``
+    (in its odd blocks). Raises ``ValueError``, naming the square sizes
+    that work, where the patches, the mergings or the windows do not tile
+    the grid."""
+
+    def plan(size):
+        if size[0] % patch or size[1] % patch:
+            return None
+        h, w = size[0] // patch, size[1] // patch
+        out = []
+        for s in range(stages):
+            if s and (h % 2 or w % 2):
+                return None
+            if s:
+                h, w = h // 2, w // 2
+            m = min(window, h, w)
+            if h % m or w % m:
+                return None
+            out.append(((h, w), m, 0 if min(h, w) <= window else window // 2))
+        return out
+
+    got = plan(tuple(image_size))
+    if got is None:
+        top = 2 * max(max(image_size), patch * window << (stages - 1))
+        fits = [n for n in range(patch, top + 1, patch) if plan((n, n)) is not None]
+        raise ValueError(f"Swin (patch {patch}, window {window}, {stages} stages) cannot tile {tuple(image_size)}; "
+                         f"square sizes that work up to {top}: {fits}")
+    return got
+
+
+def swin_relative_index(window: int) -> torch.Tensor:
+    """(window**2, window**2) index into a ((2 window - 1)**2, heads) bias
+    table: for tokens i, j of a window (row-major), (dy + window - 1) *
+    (2 window - 1) + (dx + window - 1), where (dy, dx) = coords(i) - coords(j)."""
+    ys, xs = torch.meshgrid(torch.arange(window), torch.arange(window), indexing="ij")
+    coords = torch.stack([ys.flatten(), xs.flatten()])  # (2, N)
+    rel = coords[:, :, None] - coords[:, None, :] + (window - 1)
+    return rel[0] * (2 * window - 1) + rel[1]
+
+
+def swin_shift_mask(grid: tuple[int, int], window: int, shift: int) -> torch.Tensor:
+    """(windows, window**2, window**2) float32 scores added in a shifted
+    block: the grid labelled in 9 regions by the slices (0, -window),
+    (-window, -shift), (-shift, end) on each axis, and -100 between two
+    tokens of a window whose labels differ."""
+    h, w = grid
+    labels = torch.zeros(h, w)
+    cuts = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
+    n = 0
+    for rows in cuts:
+        for cols in cuts:
+            labels[rows, cols] = n
+            n += 1
+    wins = _windows(labels[None, :, :, None], window).squeeze(-1)  # (windows, N)
+    diff = wins[:, None, :] - wins[:, :, None]
+    return torch.zeros_like(diff).masked_fill(diff != 0, _SWIN_MASKED)
+
+
+def _windows(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, h, w, C) -> (B * windows, window**2, C), windows row-major."""
+    b, h, w, c = x.shape
+    x = x.view(b, h // window, window, w // window, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, window * window, c)
+
+
+def _unwindows(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of :func:`_windows`."""
+    c = x.shape[-1]
+    x = x.view(-1, h // window, w // window, window, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, h, w, c)
+
+
+class SwinWindowAttention(nn.Module):
+    """W-MSA: multi-head self-attention inside each window, with a learned
+    relative position bias per head (``relative_position_bias_table``,
+    indexed by :func:`swin_relative_index`) and, in a shifted block, the
+    shift mask. ``qkv`` and ``proj`` run in ``dtype``; the scores, bias,
+    mask and softmax in float32, as autocast runs the published model."""
+
+    def __init__(self, dim: int, heads: int, window: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.heads, self.window, self.dtype = heads, window, dtype
+        self.scale = (dim // heads) ** -0.5
+        self.relative_position_bias_table = nn.Parameter(torch.empty((2 * window - 1) ** 2, heads))
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
+        self.register_buffer("relative_position_index", swin_relative_index(window), persistent=False)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """``x``: (B * windows, window**2, dim) -> the same shape, in ``dtype``."""
+        bw, n, dim = x.shape
+        qkv = self.qkv(x).view(bw, n, 3, self.heads, dim // self.heads).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
+        bias = self.relative_position_bias_table[self.relative_position_index.view(-1)]
+        bias = bias.view(n, n, self.heads).permute(2, 0, 1)  # (heads, N, N), float32
+        scores = q @ k.transpose(-2, -1)  # (B * windows, heads, N, N)
+        if mask is None:
+            attn = torch.softmax(scores + bias, dim=-1)
+        else:  # the windows of one image in a row: (B, windows, heads, N, N)
+            attn = torch.softmax(scores.view(-1, mask.shape[0], self.heads, n, n) + (bias + mask[:, None]), dim=-1)
+        attn = attn.to(self.dtype).view(bw, self.heads, n, n)
+        return self.proj((attn @ v).transpose(1, 2).reshape(bw, n, dim))
+
+
+class SwinMlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden, dtype=dtype)
+        self.fc2 = Dense(hidden, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))  # exact GELU
+
+
+class SwinBlock(nn.Module):
+    """``x + WA(LN1(x))`` then ``x + MLP(LN2(x))`` on a float32 residual
+    stream of (B, h*w, dim) tokens. WA rolls the grid by ``-shift`` on both
+    axes, attends within windows, and rolls back; the span
+    ``model.swin.attention`` covers it, and the counter
+    ``model.swin.windows`` counts the window attentions queued."""
+
+    def __init__(self, dim: int, heads: int, grid: tuple[int, int], window: int, shift: int, mlp_ratio: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.grid, self.window, self.shift, self.dtype = grid, window, shift, dtype
+        self.norm1 = LayerNorm(dim, _SWIN_EPS)
+        self.attn = SwinWindowAttention(dim, heads, window, dtype)
+        self.norm2 = LayerNorm(dim, _SWIN_EPS)
+        self.mlp = SwinMlp(dim, dim * mlp_ratio, dtype)
+        mask = swin_shift_mask(grid, window, shift) if shift else None
+        self.register_buffer("attn_mask", mask, persistent=False)
+        self.windows = (grid[0] // window) * (grid[1] // window)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, dim = x.shape
+        (h, w), m, s = self.grid, self.window, self.shift
+        y = self.norm1(x)
+        with span("model.swin.attention"):
+            y = y.to(self.dtype).view(b, h, w, dim)
+            if s:
+                y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
+            y = _unwindows(self.attn(_windows(y, m), self.attn_mask), m, h, w)
+            if s:
+                y = torch.roll(y, shifts=(s, s), dims=(1, 2))
+            count("model.swin.windows", b * self.windows)
+        x = x + y.reshape(b, h * w, dim).float()
+        return x + self.mlp(self.norm2(x).to(self.dtype)).float()
+
+
+class SwinPatchMerging(nn.Module):
+    """(B, h*w, C) -> (B, h*w/4, 2C): each 2x2 neighbourhood's tokens
+    concatenated in the order (0, 0), (1, 0), (0, 1), (1, 1) (row, column),
+    LayerNorm(4C), then a linear map to 2C without bias; the span
+    ``model.swin.merge``."""
+
+    def __init__(self, dim: int, grid: tuple[int, int], dtype=torch.bfloat16):
+        super().__init__()
+        self.grid = grid
+        self.norm = LayerNorm(4 * dim, _SWIN_EPS)
+        self.reduction = Dense(4 * dim, 2 * dim, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("model.swin.merge"):
+            b, _, c = x.shape
+            h, w = self.grid
+            x = x.view(b, h, w, c)
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+            return self.reduction(self.norm(x.view(b, -1, 4 * c))).float()
+
+
+class SwinStage(nn.Module):
+    def __init__(self, blocks: list, downsample: nn.Module | None):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
+        return x if self.downsample is None else self.downsample(x)
+
+
+class SwinPatchEmbed(nn.Module):
+    def __init__(self, patch: int, dim: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.proj = Conv(3, dim, patch, patch, dtype=dtype)
+        self.norm = LayerNorm(dim, _SWIN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.proj(x).flatten(2).transpose(1, 2))  # tokens in row-major (h, w) order
+
+
+class SwinTransformer(nn.Module):
+    """Swin Transformer (Liu et al. 2021): a patch embedding with its
+    LayerNorm (no absolute position embedding), stages of blocks that
+    alternate W-MSA and SW-MSA, each stage but the last followed by patch
+    merging, then LayerNorm, the mean over tokens and a dense head. Its
+    submodules carry the published model's names (``layers.2.blocks.5.
+    attn.relative_position_bias_table``); the relative indices and shift
+    masks are buffers built from ``image_size`` and kept out of the state
+    dict, so it holds the learned tensors only, in the order the forward
+    uses them. A size that the windows do not tile is refused at build
+    time, and a forward at another size than the one built raises."""
+
+    def __init__(self, num_classes: int = 1000, patch: int = 4, dim: int = 192, depths=(2, 2, 18, 2),
+                 heads=(6, 12, 24, 48), window: int = 12, mlp_ratio: int = 4, dtype=torch.bfloat16,
+                 image_size=(384, 384)):
+        super().__init__()
+        self.image_size = tuple(image_size)
+        plan = swin_stages(self.image_size, patch, len(depths), window)
+        self.patch_embed = SwinPatchEmbed(patch, dim, dtype)
+        stages = []
+        for s, ((grid, m, shift), depth, nh) in enumerate(zip(plan, depths, heads)):
+            c = dim << s
+            blocks = [SwinBlock(c, nh, grid, m, shift if j % 2 else 0, mlp_ratio, dtype) for j in range(depth)]
+            stages.append(SwinStage(blocks, SwinPatchMerging(c, grid, dtype) if s < len(depths) - 1 else None))
+        self.layers = nn.ModuleList(stages)
+        self.norm = LayerNorm(dim << (len(depths) - 1), _SWIN_EPS)
+        self.head = Dense(dim << (len(depths) - 1), num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape[-2:]) != self.image_size:
+            raise ValueError(f"SwinTransformer was built for {self.image_size}; got an input of {tuple(x.shape[-2:])}")
+        x = self.patch_embed(x)
+        for stage in self.layers:
+            x = stage(x)
+        return self.head(self.norm(x).mean(dim=1))
+
+
+def SwinL384(image_size=(384, 384), **kw) -> SwinTransformer:
+    """Swin-L, patch 4, window 12 (``swin_large_patch4_window12_384``;
+    197M params, 103.9 G multiply-adds at 384x384)."""
+    return SwinTransformer(dim=192, depths=(2, 2, 18, 2), heads=(6, 12, 24, 48), window=12, image_size=image_size,
+                           **kw)
+
+
+# ---------------------------------------------------------------------------
 # initialization
 # ---------------------------------------------------------------------------
 
@@ -700,8 +955,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of a zoo model from ``generator``, by
     the Flax initializers' rules: LeCun-normal (truncated) kernels, zero
     biases, BatchNorm/LayerNorm scale 1 and bias 0, running statistics 0 and
-    1, ViT's class token 0 and position embedding normal(0.02). The values
-    differ from JAX's init of the same seed."""
+    1, ViT's class token 0 and position embedding normal(0.02), Swin's
+    relative position bias tables truncated normal(0.02) as the published
+    code draws them. The values differ from JAX's init of the same seed."""
     for m in model.modules():
         if isinstance(m, (Conv, Dense)):
             std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
@@ -717,4 +973,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, ViT):
             m.cls.zero_()
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, SwinWindowAttention):
+            nn.init.trunc_normal_(m.relative_position_bias_table, 0.0, 0.02, -2.0, 2.0, generator=generator)
     return model

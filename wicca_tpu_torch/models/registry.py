@@ -24,6 +24,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import inspect
 import logging
@@ -61,10 +62,35 @@ def preprocess_caffe(x: np.ndarray) -> np.ndarray:
 
 def preprocess_torch(x: np.ndarray) -> np.ndarray:
     """[0,1] + ImageNet mean/std normalize (Keras 'torch' mode: EfficientNet+DenseNet)."""
-    x = np.asarray(x, dtype=np.float32) / 255.0
-    mean = np.array([0.485, 0.456, 0.406], dtype=np.float32)
-    std = np.array([0.229, 0.224, 0.225], dtype=np.float32)
-    return (x - mean) / std
+    x = np.array(x, dtype=np.float32)  # one copy; the steps below (the JAX package's, in its order) work in it
+    x /= 255.0
+    x -= np.array([0.485, 0.456, 0.406], dtype=np.float32)
+    x /= np.array([0.229, 0.224, 0.225], dtype=np.float32)
+    return x
+
+
+class StreamLender:
+    """Idle streams, lent one to each call: a call takes the stream that was
+    given back last (or a new one from ``make`` where none is idle) and gives
+    it back when it ends. Calls that follow one another, from whichever
+    thread, run on one stream, so the CUDA caching allocator, which reuses a
+    block only on the stream it was allocated on, serves each call from the
+    blocks of the last; calls at the same time get streams of their own."""
+
+    def __init__(self, make):
+        self._make = make
+        self._idle: list = []
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def lend(self):
+        with self._lock:
+            stream = self._idle.pop() if self._idle else self._make()
+        try:
+            yield stream
+        finally:
+            with self._lock:
+                self._idle.append(stream)
 
 
 class TorchClassifier:
@@ -74,9 +100,10 @@ class TorchClassifier:
     forward under ``torch.inference_mode()`` and copies the float32 logits
     back: the spans ``model.upload``, ``model.forward`` (the forward's host
     dispatch) and ``model.fetch``, and the counter ``model.images``. On a
-    card a calling thread queues its work on a CUDA stream of its own and
-    waits only for its own copy back, so classifiers called from several
-    threads overlap on one card.
+    card a call queues its work on a CUDA stream lent to it for the call
+    (:class:`StreamLender`) and waits only for its own copy back, so calls
+    from several threads at once overlap on one card, and calls one after
+    another reuse one stream's memory.
     """
 
     def __init__(self, name: str, module: nn.Module, input_shape: tuple[int, int], device: torch.device):
@@ -84,13 +111,7 @@ class TorchClassifier:
         self.module = module
         self.input_shape = input_shape
         self.device = device
-        self._local = threading.local()
-
-    def _stream(self):
-        s = getattr(self._local, "stream", None)
-        if s is None:
-            s = self._local.stream = torch.cuda.Stream(self.device)
-        return s
+        self._streams = StreamLender(lambda: torch.cuda.Stream(self.device))
 
     def _forward(self, batch: np.ndarray) -> np.ndarray:
         with span("model.upload"):
@@ -105,7 +126,7 @@ class TorchClassifier:
     def __call__(self, batch: np.ndarray) -> np.ndarray:
         if self.device.type != "cuda":
             return self._forward(batch)
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream()):
+        with self._streams.lend() as stream, torch.cuda.device(self.device), torch.cuda.stream(stream):
             return self._forward(batch)
 
 
@@ -123,6 +144,8 @@ _ARCHITECTURES: dict[str, tuple[Any, Any]] = {
     "NASNetMobile": (nasnet_keras.NASNetMobileKeras, preprocess_minus1_1),
     "ViTS16": (nets.ViTS16, preprocess_minus1_1),
     "ViTTiny16": (nets.ViTTiny16, preprocess_minus1_1),
+    # the port's own names, after the JAX package's
+    "SwinL384": (nets.SwinL384, preprocess_torch),
 }
 
 
