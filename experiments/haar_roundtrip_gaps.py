@@ -35,7 +35,7 @@ from wicca_tpu_torch import QuantSpec, decode, encode  # noqa: E402
 from wicca_tpu_torch.codec import pipeline  # noqa: E402
 
 SPEC = QuantSpec(base_step=1.0)
-KERNELS = ("dwt_quant_kernel<3", "dwt_quant_kernel<2", "idwt_dequant_kernel<2", "idwt_dequant_kernel<3")
+KERNELS = ("dwt_quant_kernel<3", "dwt_quant_kernel<2", "idwt_dequant_kernel<2", "idwt_dequant_kernel_quads")
 GAPS = ("before", "k2", "k2_k3", "k3")
 
 

@@ -58,15 +58,30 @@ def test_icon_kernel_matches_plain(host_lib, depth):
     _equal(ops._launch_icon(host_lib, sat, depth, 0), ops.icon_plain(sat, depth))
 
 
+# Inputs of the K2/K3 cases. For K3 at k = 3, whose uint8 tiles are two
+# level-3 columns wide: "u8" and "f32" leave the last tile of a row one
+# column (masked, column by column accesses), the "-even" and "-wide" ones
+# fill every tile (whole-tile accesses), "-wide" with more blocks of tiles
+# than one. The uint8 inputs have a leading batch dimension.
+SOURCES = {
+    "u8": (2, 3, 37, 71),
+    "f32": (3, 45, 50),
+    "u8-even": (2, 3, 21, 80),
+    "f32-even": (3, 14, 48),
+    "u8-wide": (2, 3, 400, 256),
+    "f32-wide": (2, 512, 320),
+}
+
+
 @pytest.mark.parametrize("steps_name", STEP_SETS)
-@pytest.mark.parametrize("src", ["u8", "f32"])
+@pytest.mark.parametrize("src", SOURCES)
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_dwt_and_idwt_kernels_match_plain(host_lib, k, src, steps_name):
     rng = np.random.default_rng(k)
-    if src == "u8":
-        x = torch.from_numpy(rng.integers(0, 256, (2, 3, 37, 71), dtype=np.uint8))
+    if src.startswith("u8"):
+        x = torch.from_numpy(rng.integers(0, 256, SOURCES[src], dtype=np.uint8))
     else:
-        x = torch.from_numpy((rng.random((3, 45, 50)) * 300 - 20).astype(np.float32))
+        x = torch.from_numpy((rng.random(SOURCES[src]) * 300 - 20).astype(np.float32))
     x = pad_to_multiple(x, 1 << k).contiguous()
     steps = STEP_SETS[steps_name](k)
     ll, dets = ops._launch_dwt(host_lib, x, steps, 0)
@@ -82,19 +97,24 @@ def test_dwt_and_idwt_kernels_match_plain(host_lib, k, src, steps_name):
 
 
 def test_codec_pass_structure_matches_plain(host_lib):
-    """Depth 5 as the codec runs it: levels 1-3 from uint8, 4-5 from float32,
-    then the inverse passes, the finest emitting uint8."""
-    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (3, 128, 96), dtype=np.uint8))
-    s13 = tuple((0.75 * 1.5**i,) * 2 + (1.125 * 1.5**i,) for i in range(3))
-    s45 = tuple((0.75 * 1.5**i,) * 2 + (1.125 * 1.5**i,) for i in range(3, 5))
-    ll3, d13 = ops._launch_dwt(host_lib, x, s13, 0)
-    ll5, d45 = ops._launch_dwt(host_lib, ll3, s45, 0)
-    rec3 = ops._launch_idwt(host_lib, ll5, d45, s45, False, 0.5, 0)
-    out = ops._launch_idwt(host_lib, rec3, d13, s13, True, 0.5, 0)
-    pll3, pd13 = ops.dwt_multilevel_quant_plain(x, s13)
-    pll5, pd45 = ops.dwt_multilevel_quant_plain(pll3, s45)
-    prec3 = ops.idwt_multilevel_dequant_plain(pll5, pd45, s45)
-    _equal(out, ops.idwt_multilevel_dequant_plain(prec3, pd13, s13, emit_u8=True))
+    """Depths 3, 5 and 6 as the codec runs them: levels 1-3 from uint8, the
+    levels after them from float32 (4-5 at depth 5, 4-6 at depth 6), then the
+    inverse passes, the finest emitting uint8."""
+    for depth in (3, 5, 6):
+        x = torch.from_numpy(np.random.default_rng(depth).integers(0, 256, (3, 128, 192), dtype=np.uint8))
+        steps = [(0.75 * 1.5**i,) * 2 + (1.125 * 1.5**i,) for i in range(depth)]
+        passes = [tuple(steps[lo:lo + 3]) for lo in range(0, depth, 3)]
+        ll, dets, pll, pdets = x, [], x, []
+        for s in passes:
+            ll, d = ops._launch_dwt(host_lib, ll, s, 0)
+            pll, pd = ops.dwt_multilevel_quant_plain(pll, s)
+            dets.append(d)
+            pdets.append(pd)
+        rec, prec = ll, pll
+        for i in range(len(passes) - 1, -1, -1):
+            rec = ops._launch_idwt(host_lib, rec, dets[i], passes[i], i == 0, 0.5, 0)
+            prec = ops.idwt_multilevel_dequant_plain(prec, pdets[i], passes[i], emit_u8=i == 0)
+        _equal(rec, prec)
 
 
 @pytest.mark.parametrize("step,quantize", [(1.0, True), (0.75, True), (1.0, False)])

@@ -15,16 +15,18 @@
 // operations take a few microseconds at the card's 67 TFLOP/s float32).
 //
 // What the design does about it: every kernel reads each input byte once
-// and writes each output byte once, with nothing in between in device
-// memory. In K1 and K2 one thread owns one pixel of the pass's coarsest grid
-// and keeps its whole 2^k x 2^k input block in registers, so the k fused
-// levels need no shared memory and no barrier; K3 gives a thread at most a
-// 4x8 output tile (see idwt_dequant_kernel); K4 and K5, one level each, give a
-// thread one 2x2 block and read the reference's tile padding as an index
-// clamp instead of a padded copy. A warp's 32 threads own 32 neighbouring
-// blocks, so every row access of the warp is one contiguous span, issued as
-// loads/stores of up to 16 bytes. Element offsets are 64-bit (a batched
-// input passes 2^31 elements easily).
+// (but K3's float32 tiles, which read LL3 and the level-3 codes twice) and
+// writes each output byte once, with nothing in between in device memory.
+// In K1 and K2 one thread owns one pixel of the pass's coarsest grid and
+// keeps its whole 2^k x 2^k input block in registers, so the k fused levels
+// need no shared memory and no barrier; K3 gives a thread an output tile of
+// 8 x 16 for uint8 and 4 x 8 for float32 at k = 3 (see
+// idwt_dequant_kernel_quads); K4 and K5, one level each, give a thread one
+// 2x2 block and read the reference's tile padding as an index clamp instead
+// of a padded copy. A warp's 32 threads own 32 neighbouring blocks, so every
+// row access of the warp is one contiguous span, issued as loads/stores of
+// up to 16 bytes. Element offsets are 64-bit (a batched input passes 2^31
+// elements easily).
 //
 // Interface: plain C, bound with ctypes. The kernels allocate nothing and
 // never synchronise; each entry point launches on the stream it is given and
@@ -231,86 +233,394 @@ __device__ __forceinline__ void load_bin_points(const void* plane, int64_t off, 
   for (int b = 0; b < N; ++b) dst[b] = bin_point(static_cast<float>(c[b]), offset);
 }
 
-// Dequantize and invert level L on this thread's NR x NC patch of level-L
-// coefficients (NR = 2^(G-L), NC = NR * TW), held in v with row stride NC;
-// v becomes the 2NR x 2NC patch of level L-1. (hg, wg) are the level-G plane
-// dims, (i, jj) the thread's row and column-group on that grid.
-template <int G, int L, int TW, int MASK16>
+// k <= 2. Dequantize and invert level L on this thread's N x N patch of
+// level-L coefficients (N = 2^(K-L)), held in v with row stride N; v becomes
+// the 2N x 2N patch of level L-1. (hk, wk) are the level-K plane dims, (i, j)
+// the thread's pixel on that grid.
+template <int K, int L, int MASK16>
 __device__ __forceinline__ void idwt_level(float* v, const IdwtArgs& a, float offset, int64_t p, int64_t i,
-                                           int64_t jj, int64_t hg, int64_t wg) {
-  constexpr int NR = 1 << (G - L), NC = NR * TW;
-  const int64_t hl = hg << (G - L), wl = wg << (G - L);
-  const int64_t base = (p * hl + i * NR) * wl + jj * NC;
-  // backwards, in place: outputs of (r, c) land at or after index r * NC + c,
+                                           int64_t j, int64_t hk, int64_t wk) {
+  constexpr int N = 1 << (K - L);
+  const int64_t hl = hk << (K - L), wl = wk << (K - L);
+  const int64_t base = (p * hl + i * N) * wl + j * N;
+  // backwards, in place: outputs of (r, c) land at or after index r * N + c,
   // where every coefficient has already been read
 #pragma unroll
-  for (int r = NR - 1; r >= 0; --r) {
-    float u[3][NC];
+  for (int r = N - 1; r >= 0; --r) {
+    float u[3][N];
 #pragma unroll
     for (int s = 0; s < 3; ++s)
-      load_bin_points<CodeT<MASK16, L>, NC>(a.det[(L - 1) * 3 + s], base + r * wl, u[s], offset);
+      load_bin_points<CodeT<MASK16, L>, N>(a.det[(L - 1) * 3 + s], base + r * wl, u[s], offset);
     const float s_lh = a.step[(L - 1) * 3], s_hl = a.step[(L - 1) * 3 + 1], s_hh = a.step[(L - 1) * 3 + 2];
 #pragma unroll
-    for (int c = NC - 1; c >= 0; --c) {
-      const float ll = v[r * NC + c];
-      float* q = v + (2 * r) * (2 * NC) + 2 * c;
-      haar_inv_dequant(ll, u[0][c], u[1][c], u[2][c], s_lh, s_hl, s_hh, q[0], q[1], q[2 * NC], q[2 * NC + 1]);
+    for (int c = N - 1; c >= 0; --c) {
+      const float ll = v[r * N + c];
+      float* q = v + (2 * r) * (2 * N) + 2 * c;
+      haar_inv_dequant(ll, u[0][c], u[1][c], u[2][c], s_lh, s_hl, s_hh, q[0], q[1], q[2 * N], q[2 * N + 1]);
     }
   }
 }
 
-// A thread expands TW neighbouring coefficients of the level-G grid,
-// G = min(K, 2), into a 2^G x (2^G * TW) output tile in registers. For K = 3,
-// TW = 2: the thread's two level-2 coefficients share one level-3 quad,
-// which it recomputes (two threads share it), and its rows of level-1 codes
-// are 4 bytes, so a warp reads 128 contiguous bytes of each plane per row.
-// (A thread per level-3 pixel, an 8x8 tile, held 117-119 registers; PERF.md.)
+// k <= 2: a thread expands one pixel of the level-k grid into its
+// 2^k x 2^k output tile in registers.
 template <int K, bool EMIT_U8, int MASK16>
 __global__ void idwt_dequant_kernel(const float* __restrict__ ll, void* __restrict__ out, int64_t planes,
                                     int64_t hc, int64_t wc, float offset, IdwtArgs a) {
-  constexpr int G = K < 2 ? K : 2;
-  constexpr int TW = K > G ? 2 : 1;
-  constexpr int S = 1 << G;  // output rows per thread; columns are S * TW
-  const int64_t hg = hc << (K - G), wg = wc << (K - G);
-  const int64_t w = wg * S;
-  const int64_t jj = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (jj >= wg / TW) return;
+  static_assert(K >= 1 && K <= 2, "k = 3 is idwt_dequant_kernel_quads");
+  constexpr int S = 1 << K;
+  const int64_t w = wc * S;
+  const int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (j >= wc) return;
   for (int64_t p = blockIdx.z; p < planes; p += gridDim.z) {
-    for (int64_t i = blockIdx.y * static_cast<int64_t>(blockDim.y) + threadIdx.y; i < hg;
+    for (int64_t i = blockIdx.y * static_cast<int64_t>(blockDim.y) + threadIdx.y; i < hc;
          i += static_cast<int64_t>(gridDim.y) * blockDim.y) {
-      float v[S * S * TW];
-      if constexpr (K == G) {
-        v[0] = ll[(p * hc + i) * wc + jj];
-      } else {
-        // level-3 pixel (i / 2, jj); this thread takes row i % 2 of its quad
-        const int64_t o = (p * hc + (i >> 1)) * wc + jj;
-        float u[3];
-#pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          const auto* codes = static_cast<const CodeT<MASK16, K>*>(a.det[(K - 1) * 3 + s]);
-          u[s] = bin_point(static_cast<float>(codes[o]), offset);
-        }
-        float o00, o01, o10, o11;
-        haar_inv_dequant(ll[o], u[0], u[1], u[2], a.step[(K - 1) * 3], a.step[(K - 1) * 3 + 1],
-                         a.step[(K - 1) * 3 + 2], o00, o01, o10, o11);
-        v[0] = (i & 1) ? o10 : o00;
-        v[1] = (i & 1) ? o11 : o01;
-      }
-      if constexpr (G >= 2) idwt_level<G, 2, TW, MASK16>(v, a, offset, p, i, jj, hg, wg);
-      idwt_level<G, 1, TW, MASK16>(v, a, offset, p, i, jj, hg, wg);
-      const int64_t base = (p * hg + i) * S * w + jj * S * TW;
+      float v[S * S];
+      v[0] = ll[(p * hc + i) * wc + j];
+      if constexpr (K >= 2) idwt_level<K, 2, MASK16>(v, a, offset, p, i, j, hc, wc);
+      idwt_level<K, 1, MASK16>(v, a, offset, p, i, j, hc, wc);
+      const int64_t base = (p * hc + i) * S * w + j * S;
 #pragma unroll
       for (int r = 0; r < S; ++r) {
         if (EMIT_U8) {
-          uint8_t row[S * TW];
+          uint8_t row[S];
 #pragma unroll
-          for (int c = 0; c < S * TW; ++c) row[c] = to_u8(v[r * S * TW + c]);
-          store_row<uint8_t, S * TW>(static_cast<uint8_t*>(out) + base + r * w, row);
+          for (int c = 0; c < S; ++c) row[c] = to_u8(v[r * S + c]);
+          store_row<uint8_t, S>(static_cast<uint8_t*>(out) + base + r * w, row);
         } else {
-          store_row<float, S * TW>(static_cast<float*>(out) + base + r * w, v + r * S * TW);
+          store_row<float, S>(static_cast<float*>(out) + base + r * w, v + r * S);
         }
       }
     }
+  }
+}
+
+// k = 3 (idwt_dequant_kernel_quads). A thread owns a tile: Q level-3
+// coefficients side by side in one row, and H of the two level-2 rows of
+// their quads, so a 4H x 8Q output tile. uint8 output takes Q = H = 2 (8 x
+// 16: an output row is one 16-byte store, a warp's row 512 contiguous
+// bytes); float32 takes Q = H = 1 (4 x 8, half a quad: two threads read the
+// same LL3 value and level-3 codes). The thread alone reads its tile's other
+// inputs, in loads issued together at its start: LL3 as Q floats, the
+// level-3 codes as Q per band, the level-2 codes as H rows of 2Q, the
+// level-1 codes as 2H rows of 4Q (twice the bytes for int16), a warp's row
+// of a plane one contiguous span. It then rebuilds its quads coarse to fine
+// and stores each pair of output rows as soon as it is made, so that its
+// registers hold the packed codes and a pair of quads' level-1 LL, never
+// the tile. Codes become floats, and results uint8, by float additions on
+// their bits, not by the conversion unit, which issues a quarter as many
+// results per clock: two conversions an output pixel held the pass near its
+// byte bound by themselves. Measured against other tiles (PERF.md): four
+// quads a thread (8 x 32, 16-byte code loads, as the first design of this
+// kernel had it) held 102-255 registers and ran at 45-50% of the bound, one
+// quad at 78%, two at 85%.
+//
+// VEC is the alignment the level-3 width wc allows, in level-3 columns: with
+// wc a multiple of Q every row of every plane starts aligned to its tile
+// row (VEC = Q); otherwise (VEC = 1) each access covers one level-3 column
+// and the last tile of a row is masked to the wc % Q columns that exist.
+
+// Elements per access to a tile's row of F * Q elements of T (F: the level's
+// columns per level-3 column), which starts F * VEC-element aligned.
+template <typename T, int F, int VEC>
+WICCA_HDC int access_of() {
+  return int(sizeof(T)) * F * VEC < 16 ? F * VEC : 16 / int(sizeof(T));
+}
+
+// Read LL3's row of the tile; accesses past its nv level-3 columns read
+// nothing and give zeros.
+template <int Q, int VEC>
+WICCA_D void load_ll_row(const float* src, float* dst, int nv) {
+  constexpr int E = access_of<float, 1, VEC>();
+#pragma unroll
+  for (int c = 0; c < Q; c += E) {
+    if (VEC == Q || c < nv) {
+      const Vec<float, E> t = *reinterpret_cast<const Vec<float, E>*>(src + c);
+#pragma unroll
+      for (int e = 0; e < E; ++e) dst[c + e] = t.v[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) dst[c + e] = 0.0f;
+    }
+  }
+}
+
+// Read a tile's row of F * Q codes C into packed 32-bit words, as they lie
+// in memory; accesses past its nv level-3 columns read nothing and give zero
+// codes.
+template <typename C, int F, int Q, int VEC>
+WICCA_D void load_code_row(const C* src, uint32_t* w, int nv) {
+  constexpr int N = F * Q, E = access_of<C, F, VEC>(), B = int(sizeof(C));
+  if constexpr (E * B >= 4) {
+    constexpr int EW = E * B / 4;  // words per access
+#pragma unroll
+    for (int c = 0; c < N; c += E) {
+      if (VEC == Q || c < nv * F) {
+        const Vec<uint32_t, EW> t = *reinterpret_cast<const Vec<uint32_t, EW>*>(src + c);
+#pragma unroll
+        for (int e = 0; e < EW; ++e) w[c * B / 4 + e] = t.v[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < EW; ++e) w[c * B / 4 + e] = 0;
+      }
+    }
+  } else {  // accesses narrower than a word: the words are assembled
+    using U = typename std::conditional<B == 1, uint8_t, uint16_t>::type;
+#pragma unroll
+    for (int e = 0; e < (N * B + 3) / 4; ++e) w[e] = 0;
+#pragma unroll
+    for (int c = 0; c < N; c += E) {
+      if (VEC == Q || c < nv * F) {
+        const Vec<U, E> t = *reinterpret_cast<const Vec<U, E>*>(src + c);
+#pragma unroll
+        for (int e = 0; e < E; ++e) w[(c + e) * B / 4] |= uint32_t(t.v[e]) << (8 * ((c + e) * B % 4));
+      }
+    }
+  }
+}
+
+// One access of output, marked evict-first (st.global.cs): the pass writes
+// each output byte once and reads none back, so the lines need not stay in
+// the caches.
+template <typename T, int E>
+WICCA_D void store_once(T* dst, const Vec<T, E>& t) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (sizeof(t) == 16)
+    __stcs(reinterpret_cast<int4*>(dst), *reinterpret_cast<const int4*>(&t));
+  else if constexpr (sizeof(t) == 8)
+    __stcs(reinterpret_cast<int2*>(dst), *reinterpret_cast<const int2*>(&t));
+  else
+    *reinterpret_cast<Vec<T, E>*>(dst) = t;
+#else
+  *reinterpret_cast<Vec<T, E>*>(dst) = t;
+#endif
+}
+
+// Write N elements from a quad boundary in accesses of E; `valid` of them
+// exist.
+template <typename T, int N, int E, bool MASKED>
+WICCA_D void store_tile_row(T* dst, const T* src, int valid) {
+#pragma unroll
+  for (int c = 0; c < N; c += E) {
+    if (!MASKED || c < valid) {
+      Vec<T, E> t;
+#pragma unroll
+      for (int e = 0; e < E; ++e) t.v[e] = src[c + e];
+      store_once<T, E>(dst + c, t);
+    }
+  }
+}
+
+WICCA_HD uint32_t float_bits(float v) {
+#if defined(__CUDA_ARCH__)
+  return __float_as_uint(v);
+#else
+  uint32_t b;
+  memcpy(&b, &v, 4);
+  return b;
+#endif
+}
+
+WICCA_HD float bits_float(uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(b);
+#else
+  float v;
+  memcpy(&v, &b, 4);
+  return v;
+#endif
+}
+
+// Byte n of the result is byte s[4n+2 : 4n] of the eight bytes (x, y).
+WICCA_HD uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(x, y, s);
+#else
+  const uint64_t xy = (uint64_t(y) << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n) r |= uint32_t((xy >> (8 * ((s >> (4 * n)) & 7))) & 0xFF) << (8 * n);
+  return r;
+#endif
+}
+
+// Code i of the packed words, exactly, as float32: its bytes with the sign
+// bit flipped, under the exponent of 2^23, are the float 2^23 + 2^(b-1) + q.
+template <typename C>
+WICCA_D float code_float(const uint32_t* w, int i) {
+  if constexpr (sizeof(C) == 1) {
+    const uint32_t b = byte_perm(w[i >> 2] ^ 0x80808080u, 0x4B000000u, 0x7540u | (i & 3));
+    return add_rn(bits_float(b), -8388736.0f);  // 2^23 + 2^7
+  } else {
+    const uint32_t k = (i & 1) * 2;
+    const uint32_t b = byte_perm(w[i >> 1] ^ 0x80008000u, 0x4B000000u, 0x7500u | ((k + 1) << 4) | k);
+    return add_rn(bits_float(b), -8421376.0f);  // 2^23 + 2^15
+  }
+}
+
+// The bin point (bin_point) of code i of the packed words.
+template <typename C>
+WICCA_D float code_point(const uint32_t* w, int i, float offset) {
+  return bin_point_int(code_float<C>(w, i), offset);
+}
+
+// to_u8(mul_rn(t, 0.5f)) in the low byte: t clipped to [0, 510] and halved
+// exactly, plus 2^23 rounded down, is 2^23 + the truncated value.
+WICCA_D uint32_t u8_bits_half(float t) {
+  t = fminf(fmaxf(t, 0.0f), 510.0f);
+#if defined(__CUDA_ARCH__)
+  return float_bits(__fmaf_rd(t, 0.5f, 8388608.0f));
+#else
+  return float_bits(floorf(t * 0.5f) + 8388608.0f);
+#endif
+}
+
+// The low bytes of four words, in order, as one word.
+WICCA_D uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return byte_perm(byte_perm(a, b, 0x0040u), byte_perm(c, d, 0x0040u), 0x5410u);
+}
+
+template <int Q, int H, int MASK16, int VEC>
+struct QuadTile {
+  using C1 = CodeT<MASK16, 1>;
+  using C2 = CodeT<MASK16, 2>;
+  using C3 = CodeT<MASK16, 3>;
+  int64_t r, j;  // level-3 row over all planes (plane * hc + row), first level-3 column
+  int h0;        // the quads' first level-2 row of the tile: 0, or 0 or 1 where H = 1
+  int nv;        // level-3 columns of the tile that exist
+  float ll[Q];
+  // the codes as packed words: [band][row][word]
+  uint32_t c3[3][(Q * sizeof(C3) + 3) / 4];
+  uint32_t c2[3][H][(2 * Q * sizeof(C2) + 3) / 4];
+  uint32_t c1[3][2 * H][(4 * Q * sizeof(C1) + 3) / 4];
+
+  // Tile (t, jt) of a plane wc level-3 columns wide: t counts H level-2
+  // rows over all planes, jt counts Q level-3 columns.
+  WICCA_D void place(int64_t t, int64_t jt, int64_t wc) {
+    r = H == 2 ? t : t >> 1;
+    h0 = H == 2 ? 0 : static_cast<int>(t & 1);
+    j = jt * Q;
+    nv = VEC == Q ? Q : static_cast<int>(wc - j < Q ? wc - j : Q);
+  }
+
+  WICCA_D void load(const float* __restrict__ llp, const IdwtArgs& a, int64_t wc) {
+    const int64_t o = r * wc + j;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+#pragma unroll
+      for (int q = 0; q < 2 * H; ++q)
+        load_code_row<C1, 4, Q, VEC>(static_cast<const C1*>(a.det[s]) + (4 * r + 2 * h0 + q) * (4 * wc) + 4 * j,
+                                     c1[s][q], nv);
+#pragma unroll
+      for (int q = 0; q < H; ++q)
+        load_code_row<C2, 2, Q, VEC>(static_cast<const C2*>(a.det[3 + s]) + (2 * r + h0 + q) * (2 * wc) + 2 * j,
+                                     c2[s][q], nv);
+      load_code_row<C3, 1, Q, VEC>(static_cast<const C3*>(a.det[6 + s]) + o, c3[s], nv);
+    }
+    load_ll_row<Q, VEC>(llp + o, ll, nv);
+  }
+};
+
+template <bool EMIT_U8, int Q, int H, int MASK16, int VEC>
+WICCA_D void rebuild_tile(const QuadTile<Q, H, MASK16, VEC>& t, void* __restrict__ out, int64_t wc, float offset,
+                          const IdwtArgs& a) {
+  using Tile = QuadTile<Q, H, MASK16, VEC>;
+  using C1 = typename Tile::C1;
+  using C2 = typename Tile::C2;
+  using C3 = typename Tile::C3;
+  constexpr int P = Q < 2 ? Q : 2;  // quads rebuilt together
+  constexpr bool MASKED = VEC != Q;
+  const int64_t w = wc * 8;
+#pragma unroll
+  for (int pq = 0; pq < Q; pq += P) {
+    if (MASKED && pq >= t.nv) break;
+    float l1[P][2 * H][4];  // the tile's level-1 LL of quads pq ...
+#pragma unroll
+    for (int h = 0; h < P; ++h) {
+      const int q = pq + h;
+      float l2[4];  // the quad's 2 x 2 level-2 LL
+      haar_inv_dequant(t.ll[q], code_point<C3>(t.c3[0], q, offset), code_point<C3>(t.c3[1], q, offset),
+                       code_point<C3>(t.c3[2], q, offset), a.step[6], a.step[7], a.step[8], l2[0], l2[1], l2[2],
+                       l2[3]);
+#pragma unroll
+      for (int rr = 0; rr < H; ++rr) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int k = 2 * q + cc;
+          const float lv = H == 2 ? l2[2 * rr + cc] : (t.h0 ? l2[2 + cc] : l2[cc]);
+          haar_inv_dequant(lv, code_point<C2>(t.c2[0][rr], k, offset), code_point<C2>(t.c2[1][rr], k, offset),
+                           code_point<C2>(t.c2[2][rr], k, offset), a.step[3], a.step[4], a.step[5],
+                           l1[h][2 * rr][2 * cc], l1[h][2 * rr][2 * cc + 1], l1[h][2 * rr + 1][2 * cc],
+                           l1[h][2 * rr + 1][2 * cc + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2 * H; ++r) {
+      float row[2][8 * P];  // output rows 2r and 2r + 1 of the tile, before the last step's multiply by 0.5
+#pragma unroll
+      for (int h = 0; h < P; ++h) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = 4 * (pq + h) + c, o = 8 * h + 2 * c;
+          haar_inv_dequant_x2(l1[h][r][c], code_point<C1>(t.c1[0][r], k, offset),
+                              code_point<C1>(t.c1[1][r], k, offset), code_point<C1>(t.c1[2][r], k, offset), a.step[0],
+                              a.step[1], a.step[2], row[0][o], row[0][o + 1], row[1][o], row[1][o + 1]);
+        }
+      }
+      const int64_t at = (8 * t.r + 4 * t.h0 + 2 * r) * w + 8 * (t.j + pq);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (EMIT_U8) {
+          uint32_t words[2 * P];  // a word is 4 output columns
+#pragma unroll
+          for (int m = 0; m < 2 * P; ++m)
+            words[m] = pack_low_bytes(u8_bits_half(row[e][4 * m]), u8_bits_half(row[e][4 * m + 1]),
+                                      u8_bits_half(row[e][4 * m + 2]), u8_bits_half(row[e][4 * m + 3]));
+          store_tile_row<uint32_t, 2 * P, access_of<uint8_t, 8, VEC>() / 4, MASKED>(
+              reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(out) + at + e * w), words, 2 * (t.nv - pq));
+        } else {
+#pragma unroll
+          for (int m = 0; m < 8 * P; ++m) row[e][m] = mul_rn(row[e][m], 0.5f);
+          store_tile_row<float, 8 * P, access_of<float, 8, VEC>(), MASKED>(static_cast<float*>(out) + at + e * w,
+                                                                           row[e], 8 * (t.nv - pq));
+        }
+      }
+    }
+  }
+}
+
+// The tile of a thread: Q level-3 columns by H of each quad's two level-2
+// rows, an 4H x 8Q output tile.
+template <bool EMIT_U8>
+struct TileOf {
+  static constexpr int Q = EMIT_U8 ? 2 : 1;
+  static constexpr int H = EMIT_U8 ? 2 : 1;
+};
+
+// Blocks of 32 x 8 threads over the tiles' columns and rows, and the blocks
+// an SM is to hold, which bound the registers a thread: four for uint8 from
+// int8 codes (64 registers; the compiler took 126 where it was asked for
+// one block and ran at 76% of the byte bound, against 85%), three for the
+// rest (85; float32 with no bound held 40 registers, read the codes one
+// after another and took 0.44 ms against 0.35; PERF.md).
+constexpr int kTileBlockX = 32, kTileBlockY = 8;
+
+template <bool EMIT_U8, int MASK16>
+constexpr int kTileBlocksPerSm = EMIT_U8 ? (MASK16 == 0 ? 4 : 3) : 2;
+
+// rows: level-3 rows over all planes (planes * hc); wc: level-3 columns.
+template <bool EMIT_U8, int MASK16, int VEC>
+__global__ void __launch_bounds__(kTileBlockX * kTileBlockY, (kTileBlocksPerSm<EMIT_U8, MASK16>))
+    idwt_dequant_kernel_quads(const float* __restrict__ ll, void* __restrict__ out, int64_t rows, int64_t wc,
+                              float offset, IdwtArgs a) {
+  constexpr int Q = TileOf<EMIT_U8>::Q, H = TileOf<EMIT_U8>::H;
+  const int64_t jt = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (jt * Q >= wc) return;
+  for (int64_t t = blockIdx.y * static_cast<int64_t>(blockDim.y) + threadIdx.y; t < rows * (2 / H);
+       t += static_cast<int64_t>(gridDim.y) * blockDim.y) {
+    QuadTile<Q, H, MASK16, VEC> tile;
+    tile.place(t, jt, wc);
+    tile.load(ll, a, wc);
+    rebuild_tile<EMIT_U8, Q, H, MASK16, VEC>(tile, out, wc, offset, a);
   }
 }
 
@@ -424,6 +734,18 @@ void launch_dwt(const void* x, int from_u8, int64_t planes, int64_t hc, int64_t 
   WICCA_LAUNCH(kernel, grid_for(planes, hc, wc), dim3(kBlockX, kBlockY), st, x, planes, hc, wc, a);
 }
 
+// k = 3: rows level-3 rows over all planes, wc level-3 columns.
+template <bool EMIT_U8, int MASK16, int VEC>
+void launch_quads(const float* ll, void* out, int64_t rows, int64_t wc, float offset, const IdwtArgs& a,
+                  cudaStream_t st) {
+  constexpr int Q = TileOf<EMIT_U8>::Q, H = TileOf<EMIT_U8>::H;
+  const int64_t gx = ((wc + Q - 1) / Q + kTileBlockX - 1) / kTileBlockX;
+  const int64_t gy = (rows * (2 / H) + kTileBlockY - 1) / kTileBlockY;
+  auto* kernel = idwt_dequant_kernel_quads<EMIT_U8, MASK16, VEC>;
+  WICCA_LAUNCH(kernel, dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy < 65535 ? gy : 65535)),
+               dim3(kTileBlockX, kTileBlockY), st, ll, out, rows, wc, offset, a);
+}
+
 // Launch the instance for this pass's code-dtype mask (searched at compile
 // time from M upwards).
 template <int K, int M = 0>
@@ -434,10 +756,15 @@ void launch_idwt(const float* ll, void* out, int emit_u8, int mask16, int64_t pl
       launch_idwt<K, M + 1>(ll, out, emit_u8, mask16, planes, hc, wc, offset, a, st);
       return;
     }
-    constexpr int G = K < 2 ? K : 2, TW = K > G ? 2 : 1;  // thread grid: level-G rows, TW-column groups
-    const dim3 grid = grid_for(planes, hc << (K - G), (wc << (K - G)) / TW);
-    auto* kernel = emit_u8 ? idwt_dequant_kernel<K, true, M> : idwt_dequant_kernel<K, false, M>;
-    WICCA_LAUNCH(kernel, grid, dim3(kBlockX, kBlockY), st, ll, out, planes, hc, wc, offset, a);
+    if constexpr (K == 3) {
+      constexpr int Q8 = TileOf<true>::Q, Q32 = TileOf<false>::Q;
+      auto* launch = emit_u8 ? (wc % Q8 == 0 ? launch_quads<true, M, Q8> : launch_quads<true, M, 1>)
+                             : (wc % Q32 == 0 ? launch_quads<false, M, Q32> : launch_quads<false, M, 1>);
+      launch(ll, out, planes * hc, wc, offset, a, st);
+    } else {
+      auto* kernel = emit_u8 ? idwt_dequant_kernel<K, true, M> : idwt_dequant_kernel<K, false, M>;
+      WICCA_LAUNCH(kernel, grid_for(planes, hc, wc), dim3(kBlockX, kBlockY), st, ll, out, planes, hc, wc, offset, a);
+    }
   }
 }
 

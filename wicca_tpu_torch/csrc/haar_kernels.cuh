@@ -106,19 +106,36 @@ WICCA_HD float bin_point(float q, float offset) {
   return add_rn(q, mul_rn(offset, s));
 }
 
+// bin_point for an integer-valued q, in one rounding: offset * sign(q) is
+// exact, so the fused multiply-add rounds the same sum.
+WICCA_HD float bin_point_int(float q, float offset) {
+  return fma_rn(offset, fminf(fmaxf(q, -1.0f), 1.0f), q);
+}
+
+// haar_inv_dequant's 2x2 block before its last rounding step, the multiply
+// by 0.5 (exact but for results in the subnormal range).
+WICCA_HD void haar_inv_dequant_x2(float ll, float u_lh, float u_hl, float u_hh, float s_lh, float s_hl,
+                                  float s_hh, float& t00, float& t01, float& t10, float& t11) {
+  const float d_hh = mul_rn(u_hh, s_hh);
+  const float rs_e = mul_rn(fma_rn(u_lh, s_lh, ll), 2.0f), rs_o = mul_rn(fma_rn(-u_lh, s_lh, ll), 2.0f);
+  const float rd_e = mul_rn(fma_rn(u_hl, s_hl, d_hh), 2.0f), rd_o = mul_rn(fma_rn(u_hl, s_hl, -d_hh), 2.0f);
+  t00 = add_rn(rs_e, rd_e);
+  t01 = add_rn(rs_o, rd_o);
+  t10 = add_rn(rs_e, -rd_e);
+  t11 = add_rn(rs_o, -rd_o);
+}
+
 // Dequantize (band = u * step) and invert one Haar level into the 2x2 block
 // (o00 o01 / o10 o11). The roundings are the JAX kernel's as XLA compiles
 // it: the LH product enters ll +- lh and the HL product enters hl +- hh as
 // fused multiply-adds, one rounding each; the HH product is rounded alone.
 WICCA_HD void haar_inv_dequant(float ll, float u_lh, float u_hl, float u_hh, float s_lh, float s_hl,
                                float s_hh, float& o00, float& o01, float& o10, float& o11) {
-  const float d_hh = mul_rn(u_hh, s_hh);
-  const float rs_e = mul_rn(fma_rn(u_lh, s_lh, ll), 2.0f), rs_o = mul_rn(fma_rn(-u_lh, s_lh, ll), 2.0f);
-  const float rd_e = mul_rn(fma_rn(u_hl, s_hl, d_hh), 2.0f), rd_o = mul_rn(fma_rn(u_hl, s_hl, -d_hh), 2.0f);
-  o00 = mul_rn(add_rn(rs_e, rd_e), 0.5f);
-  o01 = mul_rn(add_rn(rs_o, rd_o), 0.5f);
-  o10 = mul_rn(add_rn(rs_e, -rd_e), 0.5f);
-  o11 = mul_rn(add_rn(rs_o, -rd_o), 0.5f);
+  haar_inv_dequant_x2(ll, u_lh, u_hl, u_hh, s_lh, s_hl, s_hh, o00, o01, o10, o11);
+  o00 = mul_rn(o00, 0.5f);
+  o01 = mul_rn(o01, 0.5f);
+  o10 = mul_rn(o10, 0.5f);
+  o11 = mul_rn(o11, 0.5f);
 }
 
 // Invert one Haar level of float bands (no dequantization).
