@@ -1,13 +1,12 @@
 """Where the card idles inside a depth-5 Haar roundtrip (``encode`` ->
 ``decode(emit_u8=True)`` of a 3x8704x6144 uint8 frame, one in flight,
-synchronized after each), through the codec's launch plans and through its
-per-pass code (the plans switched off), in a bare loop and in a loop shaped
-like the benchmark's resident cell (CUDA events recorded around the call,
+synchronized after each), through the codec's launch plans, in a bare loop
+and in a loop shaped like the benchmark's resident cell (CUDA events recorded around the call,
 the synchronize, the events read).
 
     python3 experiments/haar_roundtrip_gaps.py   # on a CUDA card
 
-Prints one JSON line: for each path and loop, the host milliseconds from
+Prints one JSON line: for each loop, the host milliseconds from
 the call to its return and the wall milliseconds to the synchronized end
 (medians of 400 roundtrips, no profiler); then, from a CUDA-only profiler
 session over 300 roundtrips, the medians of each kernel's time and of each
@@ -32,7 +31,6 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from wicca_tpu_torch import QuantSpec, decode, encode  # noqa: E402
-from wicca_tpu_torch.codec import pipeline  # noqa: E402
 
 SPEC = QuantSpec(base_step=1.0)
 KERNELS = ("dwt_quant_kernel<3", "dwt_quant_kernel<2", "idwt_dequant_kernel<2", "idwt_dequant_kernel_quads")
@@ -93,19 +91,12 @@ def main() -> None:
     x = torch.randint(0, 256, (3, 8704, 6144), dtype=torch.uint8, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(5))
     out = {"device": torch.cuda.get_device_name(dev), "torch": torch.__version__}
-    launch = pipeline._PLAN_LAUNCH["cuda"]
-    for path in ("plans", "pass_code", "plans_again"):
-        if path == "pass_code":
-            del pipeline._PLAN_LAUNCH["cuda"]
-        else:
-            pipeline._PLAN_LAUNCH["cuda"] = launch
-        for bench_like in (False, True):
-            _loop(x, 40, bench_like)  # warm: the plans, the allocator's blocks
-            host, wall = _loop(x, 400, bench_like)
-            out[f"{path}.{'bench' if bench_like else 'bare'}"] = {
-                "host_ms": round(statistics.median(host), 4), "wall_ms": round(statistics.median(wall), 4),
-                **_gaps(x, 300, bench_like)}
-    pipeline._PLAN_LAUNCH["cuda"] = launch
+    for bench_like in (False, True):
+        _loop(x, 40, bench_like)  # warm: the plans, the allocator's blocks
+        host, wall = _loop(x, 400, bench_like)
+        out[f"plans.{'bench' if bench_like else 'bare'}"] = {
+            "host_ms": round(statistics.median(host), 4), "wall_ms": round(statistics.median(wall), 4),
+            **_gaps(x, 300, bench_like)}
     print(json.dumps(out))
 
 

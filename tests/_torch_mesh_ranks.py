@@ -1,6 +1,7 @@
 """Rank functions for the port's mesh tests (``tests/test_torch_mesh.py``,
 ``test_torch_tiled.py``, ``test_torch_tiled_codec.py``,
-``test_torch_model_parallel.py``, ``test_torch_parallel_batch.py``).
+``test_torch_model_parallel.py``, ``test_torch_parallel_batch.py``,
+``test_torch_codec_plan.py``).
 
 Not a test module. Each function runs on every rank of a gloo world on the
 CPU (:func:`wicca_tpu_torch.parallel.launch.run_world`) and returns plain
@@ -270,6 +271,32 @@ def codec_checks() -> dict:
                 "mesh": _stream_np(st), "single": _stream_np(ss), "wct": (serialize(st), serialize(ss)),
                 "decode": (_np(tiled_decode(st, mesh=m, emit_u8=True)), decode(ss, emit_u8=True).numpy())}
     return out
+
+
+def plan_checks(cxx: str) -> dict:
+    """A Haar frame through ``tiled_encode`` and ``tiled_decode`` on a 1x2
+    mesh, each rank's cascades through the launch plans, launched by the
+    host build of K2/K3 (compiler ``cxx``): the gathered stream, the decode
+    and this rank's plan counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wicca_tpu_torch import QuantSpec
+    from wicca_tpu_torch.codec import pipeline
+    from wicca_tpu_torch.ops import _build
+    from wicca_tpu_torch.parallel import make_mesh, tiled_decode, tiled_encode
+    from wicca_tpu_torch.utils import timing
+
+    host = _build.host_library(cxx)
+    pipeline._PLAN_LAUNCH["cpu"] = lambda index, launch, *args: launch(host, *args, 0)
+    mesh = make_mesh(1, 1, 2, device_type="cpu")
+    x = torch.from_numpy(_img((3, 64, 96), 31))
+    timing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        st = tiled_encode(x, levels=4, spec=QuantSpec(base_step=0.75), mesh=mesh)
+        rec = tiled_decode(st, mesh=mesh, emit_u8=True)
+    counters = timing.snapshot()["counters"]
+    return {"stream": _stream_np(st), "decode": _np(rec),
+            "plans": {k: v for k, v in counters.items() if k.startswith("codec.plan")}}
 
 
 def dataclasses_replace(st, ll, details):

@@ -1,11 +1,14 @@
-"""The launch plans of the fused 8-bit Haar path (``codec/pipeline.py``):
-``encode`` and ``decode`` through the plans on the CPU, their K2/K3
-launches run by the host build of the kernels (``csrc/host_emulation.h``,
-stream 0), held against the pass code the other paths take (the same
-kernels, through the pipeline's per-pass code) and against the plain twins.
-Tolerance 0. Also: the plans' counters, that no plan holds a buffer, the
-copies and refusals of the pass code, which streams keep the pass code,
-and the launch counts."""
+"""The launch plans of the 8-bit Haar cascade (``codec/pipeline.py``):
+``encode``, ``decode`` and ``decode_at_level`` through the plans on the
+CPU, their K2/K3 launches run by the host build of the kernels
+(``csrc/host_emulation.h``, stream 0), held against the pass code written
+out by hand in this file (the fine-side partition into passes of <= 3
+levels, each pass a call of K2/K3 or their plain twins) and against the
+plans' own CPU route, the plain twins. Tolerance 0. Also: the plans'
+counters, that no plan holds a buffer, the copies and refusals of the pass
+code, that ROI, R-D, colour, mesh and partial decodes take plans too, the
+launch counts, and the lifting wavelets' region decode through their one
+inverse cascade."""
 
 import contextlib
 import dataclasses
@@ -18,11 +21,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from wicca_tpu_torch import QuantSpec, decode, encode
+from tests import _torch_mesh_ranks as R
+from wicca_tpu_torch import QuantSpec, decode, decode_at_level, decode_region, encode
 from wicca_tpu_torch.codec import pipeline
 from wicca_tpu_torch.codec.roi import apply_roi
+from wicca_tpu_torch.core.pad import pad_to_multiple
 from wicca_tpu_torch.ops import _build
 from wicca_tpu_torch.ops import dwt_cuda as ops
+from wicca_tpu_torch.parallel import run_world
 from wicca_tpu_torch.utils import timing
 
 
@@ -35,16 +41,21 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def host_lib():
+def cxx():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
+    return cxx
+
+
+@pytest.fixture(scope="module")
+def host_lib(cxx):
     return _build.host_library(cxx)
 
 
 @pytest.fixture
 def planned(host_lib, monkeypatch):
-    """CPU tensors take the launch plans, launched by the host-built kernels."""
+    """CPU tensors' plans launched by the host-built kernels."""
     monkeypatch.setitem(pipeline._PLAN_LAUNCH, "cpu", lambda index, launch, *args: launch(host_lib, *args, 0))
     pipeline._ENCODE_PLANS.clear()
     pipeline._DECODE_PLANS.clear()
@@ -56,23 +67,10 @@ def planned(host_lib, monkeypatch):
 
 
 @contextlib.contextmanager
-def _pass_code(host_lib):
-    """The pipeline's per-pass code, its K2/K3 calls through the host-built kernels."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.delitem(pipeline._PLAN_LAUNCH, "cpu", raising=False)
-        mp.setattr(pipeline, "dwt_multilevel_quant",
-                   lambda x, steps: ops._launch_dwt(host_lib, x, ops._band_steps3(steps), 0))
-        mp.setattr(pipeline, "idwt_multilevel_dequant",
-                   lambda ll, dets, steps, emit_u8=False, recon_offset=0.5: ops._launch_idwt(
-                       host_lib, ll, dets, ops._band_steps3(steps), emit_u8, recon_offset, 0))
-        yield
-
-
-@contextlib.contextmanager
 def _plain():
-    """The route of CPU tensors: the plain twins."""
+    """The route of CPU tensors: the plans with the plain twins."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.delitem(pipeline._PLAN_LAUNCH, "cpu", raising=False)
+        mp.setitem(pipeline._PLAN_LAUNCH, "cpu", pipeline._launch_plain)
         yield
 
 
@@ -86,6 +84,63 @@ def _counting():
 def _counters() -> dict:
     c = timing.snapshot()["counters"]
     return {k: c[k] for k in ("codec.plan_hit", "codec.plan_miss") if k in c}
+
+
+# ---------------------------------------------------------------------------
+# The pass code, by hand
+# ---------------------------------------------------------------------------
+
+
+def _partition(levels: int) -> list[tuple[int, int]]:
+    """Passes of <= 3 levels from the fine side: ``(lo, hi)`` covers levels
+    ``lo+1..hi``."""
+    bounds = list(range(0, levels, 3)) + [levels]
+    return list(zip(bounds, bounds[1:]))
+
+
+def _kernels(host_lib):
+    """(K2, K3) as ``fwd(x, steps)``, ``inv(ll, dets, steps, emit_u8,
+    offset)``: the host-built kernels, or the plain twins for None."""
+    if host_lib is None:
+        return ops.dwt_multilevel_quant_plain, ops.idwt_multilevel_dequant_plain
+    return (lambda x, steps: ops._launch_dwt(host_lib, x, ops._band_steps3(steps), 0),
+            lambda ll, dets, steps, u8, off: ops._launch_idwt(host_lib, ll, dets, ops._band_steps3(steps), u8, off, 0))
+
+
+def _encode_by_hand(x, levels, spec, host_lib=None):
+    """``(ll, details)`` of the Haar cascade of ``x`` edge-padded to
+    ``2**levels``: uint8 stays uint8 into the first pass, else float32."""
+    fwd, _ = _kernels(host_lib)
+    ll = pad_to_multiple(x, 1 << levels)
+    ll = ll if ll.dtype == torch.uint8 else ll.to(torch.float32)
+    details = []
+    for lo, hi in _partition(levels):
+        ll, dets = fwd(ops.contiguous_aligned(ll), tuple(spec.band_steps(lvl) for lvl in range(lo + 1, hi + 1)))
+        details += dets
+    return ll, details
+
+
+def _steps(spec, div, lvl):
+    s = spec.band_steps(lvl)
+    return tuple(a * b for a, b in zip(s, div[3 * (lvl - 1) : 3 * lvl])) if div else s
+
+
+def _decode_by_hand(stream, emit_u8=False, offset=0.5, target=0, host_lib=None):
+    """The Haar cascade of a plain-coded stream coarse to fine down to level
+    ``target``, cropped to the original extent at that level."""
+    _, inv = _kernels(host_lib)
+    x = stream.ll.to(torch.float32)
+    for lo, hi in reversed(_partition(stream.levels)):
+        if hi <= target:
+            break
+        start = max(lo, target)
+        dets = [tuple(map(ops.contiguous_aligned, stream.details[lvl])) for lvl in range(start, hi)]
+        ch, cw = dets[-1][0].shape[-2:]
+        steps = tuple(_steps(stream.spec, stream.band_div, lvl) for lvl in range(start + 1, hi + 1))
+        x = inv(ops.contiguous_aligned(x[..., :ch, :cw]), dets, steps, emit_u8 and start == target, offset)
+    h, w = stream.orig_shape
+    x = x[..., : -(-h // (1 << target)), : -(-w // (1 << target))]
+    return torch.clamp(x, 0, 255).to(torch.uint8) if emit_u8 and x.dtype != torch.uint8 else x
 
 
 def _tensors(stream):
@@ -102,6 +157,12 @@ def _streams_equal(a, b) -> None:
         b.levels, b.orig_shape, b.spec, b.wavelet, b.color, b.bit_depth, b.layout)
     assert len(a.details) == len(b.details)
     for x, y in zip(_tensors(a), _tensors(b)):
+        _equal(x, y)
+
+
+def _cascade_equal(stream, ll, details) -> None:
+    assert len(stream.details) == len(details)
+    for x, y in zip(_tensors(stream), [ll] + [b for bands in details for b in bands]):
         _equal(x, y)
 
 
@@ -133,19 +194,18 @@ def test_plans_match_the_pass_code_and_the_plain_twins(planned, host_lib, levels
         st = encode(x, levels=levels, spec=spec)
         recs = {(u8, off): decode(st, emit_u8=u8, recon_offset=off) for u8 in (False, True) for off in (0.5, 0.3)}
     assert _counters() == {"codec.plan_miss": 5}  # the encode and four decode settings, every one through a plan
-    with _pass_code(host_lib):
-        pst = encode(x, levels=levels, spec=spec)
-        precs = {key: decode(pst, emit_u8=key[0], recon_offset=key[1]) for key in recs}
     with _plain():
         tst = encode(x, levels=levels, spec=spec)
         trecs = {key: decode(tst, emit_u8=key[0], recon_offset=key[1]) for key in recs}
-    _streams_equal(st, pst)
     _streams_equal(st, tst)
+    for lib in (host_lib, None):  # the pass code on the host-built kernels and on the plain twins
+        _cascade_equal(st, *_encode_by_hand(x, levels, spec, lib))
     assert st.orig_shape == hw and st.ll.shape == lead + tuple(-(-n // 2**levels) for n in hw)
     for key, rec in recs.items():
         assert rec.shape == lead + hw and rec.dtype == (torch.uint8 if key[0] else torch.float32)
-        _equal(rec, precs[key])
         _equal(rec, trecs[key])
+        for lib in (host_lib, None):
+            _equal(rec, _decode_by_hand(st, *key, host_lib=lib))
 
 
 def test_a_second_call_hits_and_a_new_geometry_misses(planned):
@@ -260,7 +320,9 @@ def test_inputs_the_kernels_cannot_take_are_copied_as_the_pass_code_copies_them(
         assert "codec.plan_miss" in _counters() or "codec.plan_hit" in _counters()
         _streams_equal(st, want)
     details = tuple(tuple(f(b) for f, b in zip((_misaligned, _strided, _misaligned), bands)) for bands in want.details)
-    for ll in (_misaligned(want.ll), _strided(want.ll)):
+    # an LL out of place, or wider than its bands and not float32: cropped and cast first
+    wide = torch.cat([want.ll, want.ll], dim=-1).double()[..., : want.ll.shape[-1] + 1]
+    for ll in (_misaligned(want.ll), _strided(want.ll), wide):
         odd = dataclasses.replace(want, ll=ll, details=details)
         with _counting():
             rec = decode(odd, emit_u8=True)
@@ -276,41 +338,97 @@ def _refusal(fn):
 
 def test_what_the_pass_code_refuses_the_plans_refuse_with_its_message(planned):
     x = _frame((3, 64, 96), "u8", 8)
-    st = encode(x, levels=3, spec=QuantSpec(base_step=1.0))
+    spec = QuantSpec(base_step=1.0)
+    st = encode(x, levels=3, spec=spec)
     bad = dataclasses.replace(st, details=(st.details[0], tuple(b[..., :-2, :] for b in st.details[1]), st.details[2]))
     mixed = dataclasses.replace(st, details=(st.details[0], (st.details[1][0].to(torch.int16),) + st.details[1][1:],
                                              st.details[2]))
     short = dataclasses.replace(st, details=(st.details[0], st.details[1][:2], st.details[2]))
-    calls = [lambda: encode(x, levels=0), lambda: encode(x, levels=3, mode="nearest"),
-             lambda: encode(torch.zeros((3, 0, 64), dtype=torch.uint8), levels=2),
-             lambda: decode(bad), lambda: decode(mixed, emit_u8=True), lambda: decode(short)]
-    planned_refusals = [_refusal(call) for call in calls]
-    with _plain():
-        assert planned_refusals == [_refusal(call) for call in calls]
+    empty = torch.zeros((3, 0, 64), dtype=torch.uint8)
+    pairs = [  # (through the plans, the pass code on the plain twins, which check as the wrappers do)
+        (lambda: encode(empty, levels=2), lambda: _encode_by_hand(empty, 2, spec)),
+        (lambda: decode(bad), lambda: _decode_by_hand(bad)),
+        (lambda: decode(mixed, emit_u8=True), lambda: _decode_by_hand(mixed, emit_u8=True)),
+        (lambda: decode(short), lambda: _decode_by_hand(short)),
+        (lambda: decode_at_level(bad, 1), lambda: _decode_by_hand(bad, target=1)),
+        # a device without plans, as the wrapper refuses it
+        (lambda: encode(x.to("meta"), levels=2), lambda: ops.dwt_multilevel_quant(x.to("meta"), (1.0,))),
+    ]
+    for through_plans, by_hand in pairs:
+        assert _refusal(through_plans) == _refusal(by_hand)
+    assert _refusal(lambda: encode(x, levels=0)) == (ValueError, "levels must be >= 1")
+    assert _refusal(lambda: encode(x, levels=3, mode="nearest"))[1].startswith("Unknown border mode 'nearest'")
 
 
-def test_streams_off_the_plain_haar_path_keep_the_pass_code(planned):
-    """ROI-coded, R-D-divided, colour-transformed and integer-wavelet
-    streams: no plan is built or used, and they decode as the plain route
-    does."""
-    x = _frame((3, 64, 96), "u8", 9)
-    spec = QuantSpec(base_step=1.0)
+def _mask():
     mask = np.zeros((64, 96), dtype=bool)
     mask[8:40, 16:64] = True
+    return mask
+
+
+def _mesh_case(cxx):
+    """A 1x2 mesh's per-shard cascades: a plan on every rank for the encode
+    and the decode, and the single device's stream and decode."""
+    x = torch.from_numpy(R._img((3, 64, 96), 31))
+    spec = QuantSpec(base_step=0.75)
+    ll, details = _encode_by_hand(x, 4, spec)
     with _plain():
-        plain = encode(x, levels=4, spec=spec)
-    cases = [lambda: apply_roi(plain, mask), lambda: dataclasses.replace(plain, band_div=(2,) * 12),
-             lambda: encode(x, levels=4, spec=spec, color="ict"), lambda: encode(x, levels=4, wavelet="haar_int")]
-    for make in cases:
-        with _plain():
-            want_st = make()
-            want = decode(want_st, emit_u8=True)
+        want = encode(x, levels=4, spec=spec)
+    for rank in run_world(R.plan_checks, 2, cxx, backend="gloo", device_type="cpu", timeout_s=120):
+        assert rank["plans"] == {"codec.plan_miss": 2}
+        got = rank["stream"]
+        np.testing.assert_array_equal(got["ll"], ll.numpy())
+        for gb, wb in zip(got["details"], details, strict=True):
+            for g, w in zip(gb, wb, strict=True):
+                np.testing.assert_array_equal(g, w.numpy())
+        np.testing.assert_array_equal(rank["decode"], _decode_by_hand(want, emit_u8=True).numpy())
+
+
+OFF_PATH = ["decode_at_level", "roi", "rd_divisors", "mesh", "ict", "haar_int"]
+
+
+@pytest.mark.parametrize("case", OFF_PATH)
+def test_streams_off_the_plain_haar_path_keep_the_pass_code(planned, cxx, case):
+    """Partial decodes, ROI-coded, R-D-divided, mesh and colour-transformed
+    Haar streams take a plan each call and equal the pass code on the plain
+    twins; the integer wavelets take none."""
+    if case == "mesh":
+        return _mesh_case(cxx)
+    x = _frame((3, 64, 96), "u8", 9)
+    spec = QuantSpec(base_step=1.0)
+    with _plain():
+        plain = encode(x, levels=5, spec=spec)
+    if case == "decode_at_level":
         with _counting():
-            st = make()
-            rec = decode(st, emit_u8=True)
-        assert _counters() == {}
+            got = [decode_at_level(plain, t, emit_u8=u8) for t in (1, 3, 4, 5) for u8 in (False, True)]
+        assert _counters() == {"codec.plan_miss": 4, "codec.plan_hit": 4}  # emit_u8 casts after the cascade
+        want = [_decode_by_hand(plain, u8, target=t) for t in (1, 3, 4, 5) for u8 in (False, True)]
+    elif case == "roi":
+        st = apply_roi(plain, _mask())
+        with _counting():
+            got = [decode(st, emit_u8=True), decode_at_level(st, 2)]
+        assert _counters() == {"codec.plan_miss": 2}
+        plain_codes = pipeline._normalize_roi(st)
+        want = [_decode_by_hand(plain_codes, True), _decode_by_hand(plain_codes, target=2)]
+    elif case == "rd_divisors":
+        st = dataclasses.replace(plain, band_div=tuple(int(d) for d in np.random.default_rng(3).integers(1, 4, 15)))
+        with _counting():
+            got = [decode(st, emit_u8=True), decode(dataclasses.replace(st, band_div=()), emit_u8=True)]
+        assert _counters() == {"codec.plan_miss": 2}  # the divisors key the plan
+        want = [_decode_by_hand(st, True), _decode_by_hand(plain, True)]
+        assert not torch.equal(want[0], want[1])
+    else:
+        kw = dict(color="ict") if case == "ict" else dict(wavelet="haar_int")
+        with _counting():
+            st = encode(x, levels=4, spec=spec, **kw)
+            got = [decode(st, emit_u8=True)]
+        assert _counters() == ({"codec.plan_miss": 2} if case == "ict" else {})
+        with _plain():
+            want_st = encode(x, levels=4, spec=spec, **kw)
+            want = [decode(want_st, emit_u8=True)]
         _streams_equal(st, want_st)
-        _equal(rec, want)
+    for g, w in zip(got, want, strict=True):
+        _equal(g, w)
 
 
 def test_a_depth5_roundtrip_counts_two_launches_of_each_kernel(planned):
@@ -318,3 +436,26 @@ def test_a_depth5_roundtrip_counts_two_launches_of_each_kernel(planned):
     decode(encode(_frame((3, 64, 96), "u8", 10), levels=5, spec=QuantSpec(base_step=1.0)), emit_u8=True)
     assert ops.LAUNCHES["dwt_multilevel_quant"] == 2 and ops.LAUNCHES["idwt_multilevel_dequant"] == 2
     assert sum(ops.LAUNCHES.values()) == 4
+
+
+@pytest.mark.parametrize("wavelet", ["legall5.3", "bior4.4"])
+def test_a_region_decode_runs_the_one_inverse_cascade_on_its_windows(monkeypatch, wavelet):
+    """A tiled 5/3 or 9/7 region decode is the inverse cascade of
+    ``decode`` on tile-aligned windows: the same passes on smaller inputs,
+    and the same crop of the full decode, bit for bit."""
+    x = _frame((1, 1100, 96), "u8", 11)
+    st = encode(x, levels=5, spec=QuantSpec(base_step=1.0), wavelet=wavelet)
+    fwd, inv = pipeline._LIFTING[wavelet]
+    seen = []
+
+    def spy(ll, dets, *args):
+        seen.append(tuple(ll.shape))
+        return inv(ll, dets, *args)
+
+    monkeypatch.setitem(pipeline._LIFTING, wavelet, (fwd, spy))
+    full = decode(st, emit_u8=True)
+    whole, seen[:] = list(seen), []
+    got = decode_region(st, 520, 700, 10, 90, emit_u8=True)
+    assert len(seen) == len(whole) == 2 and all(a[-2] <= b[-2] for a, b in zip(seen, whole))
+    assert seen[-1][-2] < whole[-1][-2]  # the finest pass: one row of tiles of three
+    _equal(got, full[..., 520:700, 10:90])

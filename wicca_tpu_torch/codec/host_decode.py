@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from wicca_tpu_torch.codec.pipeline import _pass_partition, _scaled_steps
 from wicca_tpu_torch.core.lifting import is_integer_wavelet
 from wicca_tpu_torch.native import idwt as _native
 from wicca_tpu_torch.utils.ema import RateEMA
@@ -416,26 +417,10 @@ def agrees_with_device(stream, recon_offset: float = 0.5) -> bool:
         return True
     for lvl, bands in enumerate(stream.details, start=1):
         wide = bands[0].dtype not in (torch.int8, np.int8)
-        s_lh, s_hl, _ = _scaled_steps_np(stream, lvl)
+        s_lh, s_hl, _ = _scaled_steps(stream.spec, stream.band_div, lvl)
         if not (_products_exact(s_lh, recon_offset, wide) and _products_exact(s_hl, recon_offset, wide)):
             return False
     return True
-
-
-def _pass_sizes(levels: int) -> list[int]:
-    sizes, lvl = [], 0
-    while lvl < levels:
-        sizes.append(min(3, levels - lvl))
-        lvl += sizes[-1]
-    return sizes
-
-
-def _scaled_steps_np(stream, lvl: int) -> tuple[float, float, float]:
-    s = stream.spec.band_steps(lvl)
-    if not stream.band_div:
-        return s
-    d = stream.band_div[(lvl - 1) * 3 : (lvl - 1) * 3 + 3]
-    return (s[0] * d[0], s[1] * d[1], s[2] * d[2])
 
 
 def host_decode(stream, emit_u8: bool = True, recon_offset: float = 0.5, target_level: int = 0) -> torch.Tensor:
@@ -468,14 +453,12 @@ def host_decode(stream, emit_u8: bool = True, recon_offset: float = 0.5, target_
     tl = target_level
     if stream.wavelet == "haar":
         x = _3d(ll).astype(_F)
-        hi = stream.levels
-        for k in reversed(_pass_sizes(stream.levels)):
-            lo = hi - k
+        for lo, hi in reversed(_pass_partition(stream.levels)):
             if hi <= tl:
                 break
             use = list(range(max(lo, tl), hi))  # a partial pass above the target
             dets = [details[i] for i in use]
-            steps = [_scaled_steps_np(stream, i + 1) for i in use]
+            steps = [_scaled_steps(stream.spec, stream.band_div, i + 1) for i in use]
             x = x[..., : dets[-1][0].shape[-2], : dets[-1][0].shape[-1]]
             h0, w0 = x.shape[-2], x.shape[-1]
             kk = len(use)
@@ -490,20 +473,16 @@ def host_decode(stream, emit_u8: bool = True, recon_offset: float = 0.5, target_
                 else:
                     lh, hl, hh = (_deq(b, st[i], recon_offset) for i, b in enumerate(bands))
                     x = _haar_level_f32(x, lh, hl, hh)
-            hi = max(lo, tl)
     elif stream.wavelet in ("legall5.3", "cdf53") and stream.layout == "tiled" and stream.bit_depth == 8:
         # tile-local reversible 5/3: the fused kernel's pass structure and tile grid
         details = _widen_div_int_np(stream, details)
         x = _3d(ll).astype(np.int32)
-        hi = stream.levels
-        for k in reversed(_pass_sizes(stream.levels)):
-            lo = hi - k
+        for lo, hi in reversed(_pass_partition(stream.levels)):
             if hi <= tl:
                 break
             use = [details[i] for i in range(max(lo, tl), hi)]
             x = x[..., : use[-1][0].shape[-2], : use[-1][0].shape[-1]]
-            x = _tiled53_pass_inv(x, [tuple(_3d(b) for b in bands) for bands in use], "legall5.3", orig_k=k)
-            hi = max(lo, tl)
+            x = _tiled53_pass_inv(x, [tuple(_3d(b) for b in bands) for bands in use], "legall5.3", orig_k=hi - lo)
     elif stream.wavelet == "haar_int":
         details = _widen_div_int_np(stream, details)
         x = _3d(ll).astype(np.int32)

@@ -22,19 +22,20 @@ scalability), ``decode_region`` (spatial random access) and
 maxshift ROI coding (:mod:`wicca_tpu_torch.codec.roi`) first;
 ``with_metadata`` attaches application metadata, which decode ignores.
 
-Plain 8-bit Haar on a card (``wavelet='haar'``, ``color='none'``, bit depth
-8, uint8 or float32 input; on decode a stream without ROI coding or R-D
-divisors, not a mesh stream) takes a launch plan: one per geometry and
-setting, built on the first call and kept in a bounded LRU (64 each for
-``encode`` and ``decode``). A plan holds the pass partition, every output's
-shape and dtype and the kernels' packed step arrays, never a tensor: each
-call checks its tensors once, allocates fresh outputs and queues the K2 or
-K3 launches, so a stream or image a caller holds never changes under a
-later call. Outputs, launch counts and refusals are those of the per-pass
-code, which every other input keeps (the plain twins on the CPU, the
-lifting wavelets, colour, ROI, R-D and mesh streams). Each call through a
-plan counts ``codec.plan_hit`` or ``codec.plan_miss``
-(:mod:`wicca_tpu_torch.utils.timing`).
+Every fused transform is a cascade of passes of <= 3 levels
+(:func:`_pass_partition`, from the fine side; decode runs it coarse to
+fine). The 8-bit Haar cascade is a launch plan, whatever the device, the
+input dtype, the target level, ROI coding, R-D divisors or mesh shard: one
+per geometry and setting, built on the first call and kept in a bounded
+LRU (64 each for ``encode`` and ``decode``). A plan holds the passes, every
+output's shape and dtype and the kernels' packed step arrays, never a
+tensor: each call checks its tensors once, allocates fresh outputs and
+queues the K2 or K3 launches on a card (the plain twins on the CPU), so a
+stream or image a caller holds never changes under a later call. Each call
+through a plan counts ``codec.plan_hit`` or ``codec.plan_miss``
+(:mod:`wicca_tpu_torch.utils.timing`). The lifting wavelets' cascades
+(:func:`_forward`, :func:`_inverse_passes`) call their kernels' wrappers
+pass by pass, from one table keyed by wavelet.
 
 Every level partition, shape and rounding step follows the JAX package, so
 streams cross between the two (:mod:`wicca_tpu_torch.codec.interop`). The
@@ -67,9 +68,9 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     IdwtPass,
     _band_steps3,
     _check_dwt,
+    _check_idwt,
+    _require_cuda,
     contiguous_aligned,
-    dwt_multilevel_quant,
-    idwt_multilevel_dequant,
     launch_on_card,
 )
 from wicca_tpu_torch.utils.timing import count, spanned
@@ -79,24 +80,49 @@ _INT_TILED = {"legall5.3": "legall5.3", "cdf53": "legall5.3", "haar_int": "haar_
 _FLOAT_TILED = {"bior4.4": "cdf97", "cdf97": "cdf97", "db2": "db2"}
 
 
-def _pass_sizes(levels: int) -> list[int]:
-    """Fine-side partition of a multi-level transform into fused passes of
-    <= 3 levels (the encoder's grouping; decode mirrors it)."""
-    sizes = []
-    lvl = 0
-    while lvl < levels:
-        sizes.append(min(3, levels - lvl))
-        lvl += sizes[-1]
-    return sizes
+def _k67(filt: str):
+    """The forward and inverse pass of K6/K7 with ``filt``."""
+
+    def fwd(x, steps, color, chroma_gain):
+        return dwt53_multilevel(x, len(steps), filt=filt, color=color)
+
+    def inv(x, dets, steps, emit_u8, orig_k, recon_offset, color, chroma_gain):
+        # K7 reads int16 details. A layer prefix of a lossless container (and
+        # nothing else) holds its widened codes as int32; an 8-bit stream's
+        # details fit int16 (the encoder stores them so), so they are cast.
+        dets = [tuple(b.to(torch.int16) for b in bands) for bands in dets]
+        return idwt53_multilevel(x, dets, len(dets), emit_u8=emit_u8, orig_k=orig_k, filt=filt, color=color)
+
+    return fwd, inv
+
+
+def _k89(filt: str):
+    """The forward and inverse pass of K8/K9 with ``filt``."""
+
+    def fwd(x, steps, color, chroma_gain):
+        return dwt97_multilevel_quant(x, steps, filt=filt, color=color, chroma_gain=chroma_gain)
+
+    def inv(x, dets, steps, emit_u8, orig_k, recon_offset, color, chroma_gain):
+        return idwt97_multilevel_dequant(x, dets, steps, emit_u8=emit_u8, orig_k=orig_k, filt=filt,
+                                         recon_offset=recon_offset, color=color, chroma_gain=chroma_gain)
+
+    return fwd, inv
+
+
+# wavelet -> (forward pass, inverse pass) of the lifting cascades
+_LIFTING = {**{w: _k67(f) for w, f in _INT_TILED.items()}, **{w: _k89(f) for w, f in _FLOAT_TILED.items()}}
 
 
 def _pass_partition(levels: int) -> list[tuple[int, int]]:
-    """``[(lo, hi)]`` fine -> coarse; a pass covers levels ``lo+1..hi``."""
-    out, lo = [], 0
-    for k in _pass_sizes(levels):
-        out.append((lo, lo + k))
-        lo += k
-    return out
+    """Fine-side partition of a multi-level transform into fused passes of
+    <= 3 levels (the encoder's grouping; decode mirrors it): ``[(lo, hi)]``
+    fine -> coarse, a pass covering levels ``lo+1..hi``."""
+    return [(lo, min(lo + 3, levels)) for lo in range(0, levels, 3)]
+
+
+def _pass_sizes(levels: int) -> list[int]:
+    """The passes' depths, fine -> coarse."""
+    return [hi - lo for lo, hi in _pass_partition(levels)]
 
 
 def _crop_semantic(ll, details, h_sem: int, w_sem: int, levels: int):
@@ -166,20 +192,24 @@ def _encode_global(x: torch.Tensor, levels: int, spec: QuantSpec, wavelet: str, 
 
 
 # ---------------------------------------------------------------------------
-# Launch plans of the fused 8-bit Haar path
+# The Haar cascade: launch plans
 # ---------------------------------------------------------------------------
 
+
+def _launch_plain(index, launch, *args):
+    """A plan's passes on the CPU: their plain twins."""
+    return launch(None, *args, stream=0)
+
+
 # device types whose tensors take the launch plans, and what launches a plan there
-_PLAN_LAUNCH = {"cuda": launch_on_card}
-_MISSING = object()
+_PLAN_LAUNCH = {"cuda": launch_on_card, "cpu": _launch_plain}
 
 
 class _PlanCache:
     """The launch plans of the last ``size`` geometries (least recently used
-    out), built by ``build(*key)`` on a miss. A plan holds shapes, dtypes
-    and packed launch arguments, never a tensor. ``build`` returns None for
-    a geometry the plan path does not take; that is kept too, and counts as
-    neither a hit nor a miss."""
+    out), built by ``build(*key)`` on a miss; a build that raises keeps
+    nothing. A plan holds shapes, dtypes and packed launch arguments, never
+    a tensor. Each ``get`` counts ``codec.plan_hit`` or ``codec.plan_miss``."""
 
     def __init__(self, build, size: int = 64):
         self._build, self._size = build, size
@@ -188,18 +218,17 @@ class _PlanCache:
 
     def get(self, key):
         with self._lock:
-            plan = self._plans.get(key, _MISSING)
-            if plan is not _MISSING:
+            plan = self._plans.get(key)
+            if plan is not None:
                 self._plans.move_to_end(key)
-        if plan is _MISSING:
+        if plan is None:
             plan = self._build(*key)
             with self._lock:
                 self._plans[key] = plan
                 if len(self._plans) > self._size:
                     self._plans.popitem(last=False)
-            if plan is not None:
-                count("codec.plan_miss", 1)
-        elif plan is not None:
+            count("codec.plan_miss", 1)
+        else:
             count("codec.plan_hit", 1)
         return plan
 
@@ -209,28 +238,22 @@ class _PlanCache:
 
 
 class _EncodePlan:
-    """K2's launches for one input geometry and setting: whether the input
-    needs padding to ``2**levels``, and each pass's packed launch. The
-    checks the pass code makes run here, once, with the same messages."""
+    """K2's passes for one padded input geometry and setting, fine to
+    coarse. The wrapper's checks run here, once, with its messages."""
 
-    __slots__ = ("pad", "passes")
+    __slots__ = ("passes",)
 
-    def __init__(self, shape, dtype, index, levels, spec, mode):  # the device index only keys the plan
-        if levels < 1:
-            raise ValueError("levels must be >= 1")
-        normalize_border_mode(mode)
-        dr, dc = pad_amounts(shape[-2], shape[-1], 1 << levels)
-        self.pad = bool(dr or dc)
-        shape, lvl, self.passes = tuple(shape[:-2]) + (shape[-2] + dr, shape[-1] + dc), 0, []
-        for k in _pass_sizes(levels):
-            steps = tuple(spec.band_steps(lvl + i + 1) for i in range(k))
+    def __init__(self, shape, dtype, index, levels, spec):  # the device index only keys the plan
+        self.passes = []
+        for lo, hi in _pass_partition(levels):
+            steps = tuple(spec.band_steps(lvl) for lvl in range(lo + 1, hi + 1))
             _check_dwt(torch.empty(shape, dtype=dtype, device="meta"), steps)
             self.passes.append(DwtPass(shape, dtype, _band_steps3(steps), stack=True))
-            shape, dtype, lvl = self.passes[-1].ll_shape, torch.float32, lvl + k
+            shape, dtype = self.passes[-1].ll_shape, torch.float32
 
     def launch(self, lib, x: torch.Tensor, stream: int):
-        """The passes fine to coarse on the padded, checked input: every
-        pass's LL and bands already have their semantic extents."""
+        """The passes on the checked input: ``(ll, details)`` with every
+        band at its semantic extent."""
         details = []
         for p in self.passes:
             x, dets = p.launch(lib, x, stream)
@@ -239,87 +262,117 @@ class _EncodePlan:
 
 
 class _DecodePlan:
-    """K3's launches for one stream geometry and setting: each pass's levels
-    ``(lo, hi)`` and packed launch, coarse to fine, and whether the result
-    is cropped to the original dims."""
+    """K3's passes for one stream geometry and setting, coarse to fine: per
+    pass the slice of the details it reads, the extent its LL is cropped to
+    (and cast to float32) first, None where it is taken as it is, and its
+    packed launch."""
 
-    __slots__ = ("passes", "crop")
+    __slots__ = ("passes",)
 
-    def __init__(self, passes: list, crop: bool):
-        self.passes, self.crop = passes, crop
+    def __init__(self, passes: list):
+        self.passes = passes
 
-    def launch(self, lib, ll: torch.Tensor, details, stream: int) -> torch.Tensor:
-        for lo, hi, p in self.passes:
-            ll = p.launch(lib, ll, details[lo:hi], stream)
-        return ll
+    def launch(self, lib, x: torch.Tensor, details, stream: int) -> torch.Tensor:
+        for a, b, crop, p in self.passes:
+            if crop is not None:
+                x = contiguous_aligned(x[..., : crop[0], : crop[1]].to(torch.float32))
+            x = p.launch(lib, x, details[a:b], stream)
+        return x
 
 
-def _decode_plan(ll_sig, band_sigs, levels, spec, emit_u8, recon_offset, orig_shape):
-    """The plan of a stream's geometry (signatures ``(shape, dtype, device
-    index)``), or None unless the stream is laid out as the encoder writes
-    it: a float32 LL, each level's three bands of one code dtype at twice
-    the next coarser extent, all on one device. Any other stream takes the
-    pass code, which crops, casts or refuses it as it always has."""
+def _where(index: int) -> str:
+    return "cpu" if index < 0 else f"cuda:{index}"
+
+
+def _decode_plan(ll_sig, band_sigs, levels, target, spec, band_div, emit_u8, recon_offset):
+    """The Haar inverse cascade of a stream geometry (signatures ``(shape,
+    dtype, device index)``, the bands' from level ``target + 1`` on) down to
+    level ``target``: a pass that crosses the target inverts only its coarse
+    part, and the pass that reaches it emits uint8 with ``emit_u8``. Each
+    pass's LL is cropped to its bands' extent and cast to float32 where it is
+    not so already; ``band_div`` scales the steps (:func:`_scaled_steps`).
+    The wrapper's checks run here, once, with its messages."""
     shape, dtype, index = ll_sig
-    if dtype != torch.float32 or len(shape) < 2 or 0 in shape or levels < 1 or len(band_sigs) != levels:
-        return None
-    lead, ch, cw = tuple(shape[:-2]), shape[-2], shape[-1]
-    codes = []
-    for lvl, sigs in enumerate(band_sigs, start=1):
-        if len(sigs) != 3:
-            return None
-        want = (lead + (ch << (levels - lvl), cw << (levels - lvl)), sigs[0][1], index)
-        if want[1] not in (torch.int8, torch.int16) or any(s != want for s in sigs):
-            return None
-        codes.append(want[1])
     passes = []
     for lo, hi in reversed(_pass_partition(levels)):
-        steps = _band_steps3(tuple(spec.band_steps(lvl + 1) for lvl in range(lo, hi)))
-        pshape = lead + (ch << (levels - hi), cw << (levels - hi))
-        passes.append((lo, hi, IdwtPass(pshape, codes[lo:hi], steps, bool(emit_u8) and lo == 0, recon_offset)))
-    return _DecodePlan(passes, orig_shape[0] < ch << levels or orig_shape[1] < cw << levels)
+        if hi <= target:
+            break
+        start = max(lo, target)
+        sigs = band_sigs[start - target : hi - target]
+        for sig in (s for bands in sigs for s in bands):
+            if sig[2] != index:
+                raise ValueError(f"idwt_multilevel_dequant: tensors lie on {_where(index)} and {_where(sig[2])}")
+        dets = [tuple(torch.empty(s[0], dtype=s[1], device="meta") for s in bands) for bands in sigs]
+        ch, cw = dets[-1][0].shape[-2], dets[-1][0].shape[-1]
+        crop = None
+        if tuple(shape[-2:]) != (ch, cw) or dtype != torch.float32:
+            crop, shape = (ch, cw), tuple(shape[:-2]) + (min(shape[-2], ch), min(shape[-1], cw))
+        steps = _band_steps3(tuple(_scaled_steps(spec, band_div, lvl) for lvl in range(start + 1, hi + 1)))
+        _check_idwt(torch.empty(shape, dtype=torch.float32, device="meta"), dets, steps)
+        p = IdwtPass(shape, [bands[0].dtype for bands in dets], steps, emit_u8 and start == target, recon_offset)
+        passes.append((start - target, hi - target, crop, p))
+        shape, dtype = p.out_shape, p.out_dtype
+    return _DecodePlan(passes)
 
 
 _ENCODE_PLANS = _PlanCache(_EncodePlan)
 _DECODE_PLANS = _PlanCache(_decode_plan)
 
 
-def _sig(t: torch.Tensor):
-    return t.shape, t.dtype, t.get_device()
+def _haar_forward(x: torch.Tensor, levels: int, spec: QuantSpec):
+    """The Haar cascade of a padded image through the plan of its geometry:
+    uint8 stays uint8 into the first pass (integer-exact early levels), any
+    other dtype is cast to float32; the input is copied only where it is not
+    contiguous and 16-byte aligned. A device without plans is refused as
+    the wrapper refuses it."""
+    if x.dtype not in (torch.uint8, torch.float32):
+        x = x.to(torch.float32)
+    index = x.get_device()
+    plan = _ENCODE_PLANS.get((x.shape, x.dtype, index, levels, spec))
+    launch = _PLAN_LAUNCH.get(x.device.type)
+    if launch is None:
+        _require_cuda("dwt_multilevel_quant", x)
+    return launch(index, plan.launch, contiguous_aligned(x))
 
 
-def _encode_planned(x: torch.Tensor, levels, spec, mode, constant, chroma_gain) -> CodeStream:
-    """``encode`` of an 8-bit Haar image without color transform on a
-    device with launch plans: the plan of the input's geometry, then only
-    the padding (where the plan says so), one check of the input (copied
-    where it is not contiguous and 16-byte aligned) and the launches."""
-    plan = _ENCODE_PLANS.get((x.shape, x.dtype, x.get_device(), levels, spec, mode))
-    orig = (x.shape[-2], x.shape[-1])
-    if plan.pad:
-        x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
-    x = contiguous_aligned(x)
-    ll, details = _PLAN_LAUNCH[x.device.type](x.get_device(), plan.launch, x)
-    return CodeStream(ll=ll, details=tuple(details), spec=spec, levels=levels, orig_shape=orig,
-                      chroma_gain=chroma_gain)
+def _haar_inverse(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float) -> torch.Tensor:
+    """The Haar cascade of a plain-coded stream down to ``target_level``
+    through the plan of its geometry: its tensors checked once, copied where
+    they are not contiguous and 16-byte aligned, and the launches."""
+    ll, index = stream.ll, stream.ll.get_device()
+    details = stream.details[target_level:] if target_level else stream.details
+    # list comprehensions run inline: the key costs no Python call per band
+    sigs = tuple([tuple([(b.shape, b.dtype, b.get_device()) for b in bands]) for bands in details])
+    plan = _DECODE_PLANS.get(((ll.shape, ll.dtype, index), sigs, stream.levels, target_level, stream.spec,
+                              stream.band_div, emit_u8, recon_offset))
+    launch = _PLAN_LAUNCH.get(ll.device.type)
+    if launch is None:
+        _require_cuda("idwt_multilevel_dequant", ll)
+    details = [tuple(map(contiguous_aligned, bands)) for bands in details]
+    return launch(index, plan.launch, contiguous_aligned(ll), details)
 
 
-def _decode_planned(stream: CodeStream, emit_u8, recon_offset) -> torch.Tensor | None:
-    """``decode`` of a plain 8-bit Haar stream on a device with launch plans
-    (no color transform, ROI or R-D divisors, not a mesh stream, laid out as
-    the encoder writes it): its tensors checked once, copied where they are
-    not contiguous and 16-byte aligned, and the launches. None for any other
-    stream."""
-    ll = stream.ll
-    if (stream.wavelet != "haar" or stream.bit_depth != 8 or stream.color != "none" or stream.roi_shift
-            or stream.band_div or type(ll) is not torch.Tensor or ll.device.type not in _PLAN_LAUNCH):
-        return None
-    sigs = tuple(tuple(map(_sig, bands)) for bands in stream.details)
-    plan = _DECODE_PLANS.get((_sig(ll), sigs, stream.levels, stream.spec, emit_u8, recon_offset, stream.orig_shape))
-    if plan is None:
-        return None
-    details = [tuple(map(contiguous_aligned, bands)) for bands in stream.details]
-    x = _PLAN_LAUNCH[ll.device.type](ll.get_device(), plan.launch, contiguous_aligned(ll), details)
-    return unpad(x, *stream.orig_shape) if plan.crop else x
+def _forward(x: torch.Tensor, levels: int, spec: QuantSpec, wavelet: str, color: str = "none",
+             chroma_gain: float = 1.0):
+    """The forward cascade of a fused wavelet over the padded image ``x``,
+    fine to coarse: ``(ll, details)``. Haar runs its plan; the lifting
+    wavelets run their passes, the first applying ``color``. The pair-local
+    wavelets (haar, haar_int) store semantic extents; the wide ones keep
+    each pass's tile-padded LL."""
+    if wavelet == "haar":
+        return _haar_forward(x, levels, spec)
+    fwd = _LIFTING[wavelet][0]
+    h_sem, w_sem = x.shape[-2], x.shape[-1]
+    ll, details = x, []
+    for lo, hi in _pass_partition(levels):
+        if wavelet == "haar_int":  # pair-local: each pass starts from the semantic extent
+            ll = ll[..., : h_sem >> lo, : w_sem >> lo]
+        steps = tuple(spec.band_steps(lvl) for lvl in range(lo + 1, hi + 1))
+        ll, dets = fwd(contiguous_aligned(ll), steps, color if lo == 0 else "none", chroma_gain)
+        details.extend(dets)
+    if wavelet == "haar_int":
+        ll, details = _crop_semantic(ll, details, h_sem, w_sem, levels)
+    return ll, details
 
 
 @spanned("codec.encode")
@@ -355,28 +408,26 @@ def encode(
     codes; ``decode(emit_u8=True)`` then emits uint16 clipped to
     ``2**bit_depth - 1``.
 
-    Plain 8-bit Haar of a uint8 or float32 tensor on a card takes the launch
-    plan of its geometry (see the module docstring): the same stream, with
-    only the padding, one check of the input and the two K2 launches per
-    call."""
+    8-bit Haar takes the launch plan of the padded input's geometry (see the
+    module docstring): after the padding, one check of the input and the K2
+    launches (two at depth 4-6) per call."""
     x = as_tensor(image, device)
-    if (wavelet == "haar" and color == "none" and bit_depth in (None, 8) and type(x) is torch.Tensor
-            and x.device.type in _PLAN_LAUNCH and x.dtype in (torch.uint8, torch.float32)):
-        return _encode_planned(x, levels, spec, mode, constant, chroma_gain)
-    if bit_depth is None:
-        bit_depth = 16 if x.dtype == torch.uint16 else 8
     if x.dtype == torch.uint16:  # few ops take uint16; int32 holds every sample
+        bit_depth = 16 if bit_depth is None else bit_depth
         x = x.to(torch.int32)
+    elif bit_depth is None:
+        bit_depth = 8
     if not 8 <= bit_depth <= 16:
         raise ValueError(f"bit_depth must be in [8, 16], got {bit_depth}")
-    if color not in ("none", "rct", "ict"):
-        raise ValueError(f"color must be none|rct|ict, got {color!r}")
-    if color != "none" and (x.ndim < 3 or x.shape[-3] not in (3, 4)):
-        raise ValueError("color transforms need planar (..., 3|4, H, W) input (RGB or RGBA)")
-    if color == "rct" and not is_integer_wavelet(wavelet):
-        raise ValueError("rct is reversible — pair it with an integer wavelet")
-    if color == "ict" and is_integer_wavelet(wavelet):
-        raise ValueError("ict is lossy — pair it with a float wavelet")
+    if color != "none":
+        if color not in ("rct", "ict"):
+            raise ValueError(f"color must be none|rct|ict, got {color!r}")
+        if x.ndim < 3 or x.shape[-3] not in (3, 4):
+            raise ValueError("color transforms need planar (..., 3|4, H, W) input (RGB or RGBA)")
+        if color == "rct" and not is_integer_wavelet(wavelet):
+            raise ValueError("rct is reversible — pair it with an integer wavelet")
+        if color == "ict" and is_integer_wavelet(wavelet):
+            raise ValueError("ict is lossy — pair it with a float wavelet")
     if levels < 1:
         raise ValueError("levels must be >= 1")
     if wavelet != "haar" and wavelet not in lifting_wavelets():
@@ -386,43 +437,23 @@ def encode(
                          f"({', '.join(sorted(lifting_wavelets()))}); for Haar use 'haar_int'")
     if wavelet == "cdf53":  # stored under its canonical name
         wavelet = "legall5.3"
-    orig = (x.shape[-2], x.shape[-1])
+    shape = x.shape
+    orig = (shape[-2], shape[-1])
     x = pad_to_multiple(x, 1 << levels, mode=mode, constant=constant)
     # the tiled kernels fold the color transform into their first level:
     # the ICT into K8's, the RCT into K6's
-    fold = bit_depth == 8 and ((color == "ict" and wavelet in _FLOAT_TILED)
-                               or (color == "rct" and wavelet in _INT_TILED))
+    fold = color != "none" and bit_depth == 8 and ((color == "ict" and wavelet in _FLOAT_TILED)
+                                                   or (color == "rct" and wavelet in _INT_TILED))
     if color == "rct" and not fold:
         x = rct_fwd_codec(x)  # alpha bypasses the rotation
     elif color == "ict" and not fold:
         x = ict_fwd_codec(x, chroma_gain)
-    h_sem, w_sem = x.shape[-2], x.shape[-1]
     layout = "tiled"
     if bit_depth != 8:
         layout = "global"
         ll, details = _encode_global(x, levels, spec, wavelet, torch.int32)
-    elif wavelet == "haar" or wavelet in _INT_TILED or wavelet in _FLOAT_TILED:
-        if wavelet == "haar" and x.dtype != torch.uint8:
-            x = x.to(torch.float32)
-        ll, details, lvl = x, [], 0
-        for k in _pass_sizes(levels):
-            steps = tuple(spec.band_steps(lvl + i + 1) for i in range(k))
-            if wavelet in ("haar", "haar_int"):  # pair-local: each pass starts from the semantic extent
-                ll = ll[..., : h_sem >> lvl, : w_sem >> lvl]
-            # the wide wavelets keep the tile-padded LL of the previous pass
-            if wavelet == "haar":
-                ll, dets = dwt_multilevel_quant(contiguous_aligned(ll), steps)
-            elif wavelet in _FLOAT_TILED:
-                ll, dets = dwt97_multilevel_quant(contiguous_aligned(ll), steps, filt=_FLOAT_TILED[wavelet],
-                                                  color="ict" if fold and lvl == 0 else "none",
-                                                  chroma_gain=chroma_gain)
-            else:
-                ll, dets = dwt53_multilevel(contiguous_aligned(ll), k, filt=wavelet,
-                                            color="rct" if fold and lvl == 0 else "none")
-            details.extend(dets)
-            lvl += k
-        if wavelet in ("haar", "haar_int"):
-            ll, details = _crop_semantic(ll, details, h_sem, w_sem, levels)
+    elif wavelet == "haar" or wavelet in _LIFTING:
+        ll, details = _forward(x, levels, spec, wavelet, color if fold else "none", chroma_gain)
     else:
         layout = "global"
         ll, details = _encode_global(x, levels, spec, wavelet, torch.int16)
@@ -432,14 +463,14 @@ def encode(
     )
 
 
-def _scaled_steps(stream: CodeStream, lvl: int) -> tuple[float, float, float]:
-    """Effective dequantization steps for level ``lvl``: the spec's band
-    steps times the plane's R-D truncation divisor (float64 products; the
-    kernels round them to float32)."""
-    s = stream.spec.band_steps(lvl)
-    if not stream.band_div:
+def _scaled_steps(spec: QuantSpec, band_div: tuple, lvl: int) -> tuple[float, float, float]:
+    """Effective dequantization steps for level ``lvl`` of a stream: the
+    spec's band steps times the plane's R-D truncation divisor (``band_div``,
+    float64 products; the kernels round them to float32)."""
+    s = spec.band_steps(lvl)
+    if not band_div:
         return s
-    d = stream.band_div[(lvl - 1) * 3 : (lvl - 1) * 3 + 3]
+    d = band_div[(lvl - 1) * 3 : (lvl - 1) * 3 + 3]
     return (s[0] * d[0], s[1] * d[1], s[2] * d[2])
 
 
@@ -491,8 +522,7 @@ def _fused(stream: CodeStream) -> bool:
     5/3 and float-wavelet streams."""
     if stream.bit_depth != 8:
         return False
-    return stream.wavelet in ("haar", "haar_int") or (
-        stream.layout == "tiled" and (stream.wavelet in _INT_TILED or stream.wavelet in _FLOAT_TILED))
+    return stream.wavelet in ("haar", "haar_int") or (stream.layout == "tiled" and stream.wavelet in _LIFTING)
 
 
 def _folds_color(stream: CodeStream, target_level: int) -> bool:
@@ -500,50 +530,44 @@ def _folds_color(stream: CodeStream, target_level: int) -> bool:
     transform themselves: the ICT of 8-bit tiled float-wavelet streams, in
     the last launch of K9, and the RCT of 8-bit integer-wavelet streams, in
     the last launch of K7."""
-    return _fused(stream) and target_level < stream.levels and (
+    return stream.color != "none" and _fused(stream) and target_level < stream.levels and (
         (stream.color == "ict" and stream.wavelet in _FLOAT_TILED)
         or (stream.color == "rct" and stream.wavelet in _INT_TILED))
 
 
-def _k7_bands(stream: CodeStream, bands):
-    """K7 reads int16 details. A layer prefix of a lossless container (and
-    nothing else) holds its widened codes as int32; an 8-bit stream's
-    details fit int16 (the encoder stores them so), so they are cast."""
-    if stream.wavelet not in _INT_TILED:
-        return bands
-    return tuple(b.to(torch.int16) for b in bands)
-
-
-def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float):
-    """The fused inverse passes, coarse to fine, down to ``target_level``.
-    A pass that crosses the target inverts only its coarse part; for the
-    lifting kernels ``orig_k`` then keeps the encoder's tile clamps.
-    ``emit_u8`` clips and casts inside the pass that reaches the target,
-    which also undoes the color transform where :func:`_folds_color` says
-    so."""
-    color = stream.color if _folds_color(stream, target_level) else "none"
-    x = stream.ll
-    hi = stream.levels
-    for k in reversed(_pass_sizes(stream.levels)):
+def _inverse_passes(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float,
+                    color: str = "none", windows=None) -> torch.Tensor:
+    """The lifting wavelets' inverse cascade, coarse to fine, down to
+    ``target_level``. A pass that crosses the target inverts only its coarse
+    part (``orig_k`` then keeps the encoder's tile clamps); the pass that
+    reaches it clips and casts with ``emit_u8`` and undoes ``color``.
+    ``windows`` (:func:`region_plan`, one per pass) restricts each pass to
+    its window: its bands sliced to it, its LL the previous output's part
+    there."""
+    inv = _LIFTING[stream.wavelet][1]
+    x, oy, ox = stream.ll, 0, 0  # x and its origin in its level's grid
+    for i, (lo, hi) in enumerate(reversed(_pass_partition(stream.levels))):
         if hi <= target_level:
             break
-        start = max(hi - k, target_level)
-        dets = [tuple(contiguous_aligned(b) for b in _k7_bands(stream, stream.details[i])) for i in range(start, hi)]
-        steps = tuple(_scaled_steps(stream, i + 1) for i in range(start, hi))
+        start = max(lo, target_level)
+        win = windows[i][2:] if windows else None
+        dets = []
+        for lvl in range(start + 1, hi + 1):
+            bands = stream.details[lvl - 1]
+            if win:
+                a0, a1, b0, b1 = (v >> (lvl - start) for v in win)
+                bands = tuple(b[..., a0:a1, b0:b1] for b in bands)
+            dets.append(tuple(contiguous_aligned(b) for b in bands))
         ch, cw = dets[-1][0].shape[-2], dets[-1][0].shape[-1]
-        x = contiguous_aligned(x[..., :ch, :cw])
+        ry = rx = 0
+        if win:
+            ry, rx = (win[0] >> (hi - start)) - oy, (win[2] >> (hi - start)) - ox
+            oy, ox = win[0], win[2]
+        x = contiguous_aligned(x[..., ry : ry + ch, rx : rx + cw])
+        steps = tuple(_scaled_steps(stream.spec, stream.band_div, lvl) for lvl in range(start + 1, hi + 1))
         last = start == target_level
-        u8 = emit_u8 and last
-        if stream.wavelet == "haar":
-            x = idwt_multilevel_dequant(x.to(torch.float32), dets, steps, emit_u8=u8, recon_offset=recon_offset)
-        elif stream.wavelet in _FLOAT_TILED:
-            x = idwt97_multilevel_dequant(x, dets, steps, emit_u8=u8, orig_k=k, filt=_FLOAT_TILED[stream.wavelet],
-                                          recon_offset=recon_offset, color=color if last else "none",
-                                          chroma_gain=stream.chroma_gain)
-        else:
-            x = idwt53_multilevel(x, dets, len(dets), emit_u8=u8, orig_k=k, filt=_INT_TILED[stream.wavelet],
-                                  color=color if last else "none")
-        hi = start
+        x = inv(x, dets, steps, emit_u8 and last, hi - lo, recon_offset, color if last else "none",
+                stream.chroma_gain)
     return x
 
 
@@ -559,15 +583,21 @@ def _inverse_global(stream: CodeStream, target_level: int, recon_offset: float) 
             bands = tuple(b.to(torch.int32) for b in bands)
         else:
             bands = tuple(dequantize_deadzone(b, s, offset=recon_offset)
-                          for b, s in zip(bands, _scaled_steps(stream, lvl)))
+                          for b, s in zip(bands, _scaled_steps(stream.spec, stream.band_div, lvl)))
         x = x[..., : bands[0].shape[-2], : bands[0].shape[-1]]
         x = idwt2_level_lifting(x, *bands, stream.wavelet)
     return x
 
 
-def _inverse(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float) -> torch.Tensor:
+def _inverse(stream: CodeStream, target_level: int, emit_u8: bool, recon_offset: float,
+             color: str = "none") -> torch.Tensor:
+    """The inverse transform down to ``target_level``: the Haar plan, the
+    lifting cascade (``emit_u8`` and ``color`` as in :func:`_inverse_passes`)
+    or the whole-image inverse."""
+    if stream.wavelet == "haar" and stream.bit_depth == 8:
+        return _haar_inverse(stream, target_level, emit_u8, recon_offset)
     if _fused(stream):
-        return _inverse_passes(stream, target_level, emit_u8, recon_offset)
+        return _inverse_passes(stream, target_level, emit_u8, recon_offset, color)
     return _inverse_global(stream, target_level, recon_offset)
 
 
@@ -598,14 +628,12 @@ def decode(stream: CodeStream, emit_u8: bool = False, recon_offset: float = 0.5)
     is the deadzone reconstruction point of lossy codes as a fraction of the
     bin (0.5 = midpoint). Runs where the stream's tensors lie; a mesh
     stream is gathered first (:func:`~wicca_tpu_torch.comm.gather_stream`).
-    A plain 8-bit Haar stream on a card, laid out as :func:`encode` writes
-    it, takes the launch plan of its geometry (see the module docstring)."""
-    planned = _decode_planned(stream, emit_u8, recon_offset)
-    if planned is not None:
-        return planned
+    An 8-bit Haar stream takes the launch plan of its geometry (see the
+    module docstring)."""
     stream = _widen_div_int(_normalize_roi(gather_stream(stream)))
     folded = _folds_color(stream, 0)
-    x = _inverse(stream, 0, emit_u8 and (stream.color == "none" or folded), recon_offset)
+    x = _inverse(stream, 0, emit_u8 and (stream.color == "none" or folded), recon_offset,
+                 stream.color if folded else "none")
     if not folded:
         x = _undo_color(stream, x)
     if emit_u8 and x.dtype != torch.uint8:  # not already cast inside the finest pass
@@ -627,7 +655,7 @@ def decode_at_level(stream: CodeStream, target_level: int, emit_u8: bool = False
     stream = _widen_div_int(_normalize_roi(gather_stream(stream)))
     h, w = stream.orig_shape
     folded = _folds_color(stream, target_level)
-    x = _inverse(stream, target_level, emit_u8 and folded, recon_offset)
+    x = _inverse(stream, target_level, emit_u8 and folded, recon_offset, stream.color if folded else "none")
     if not folded:
         x = _undo_color(stream, x)
     x = unpad(x, -(-h // (1 << target_level)), -(-w // (1 << target_level)))
@@ -690,30 +718,12 @@ def _decode_region_tiled(stream: CodeStream, row0, row1, col0, col1, emit_u8: bo
     window only (independent tiles), so the result equals the same crop of
     :func:`decode`."""
     stream = _widen_div_int(_normalize_roi(stream))
-    x = None
-    pa0 = pb0 = 0
-    for lo, hi, a0, a1, b0, b1 in region_plan(stream, row0, row1, col0, col1):
-        k = hi - lo
-        dets = [
-            tuple(contiguous_aligned(b[..., a0 >> s : a1 >> s, b0 >> s : b1 >> s])
-                  for b in _k7_bands(stream, stream.details[lvl - 1]))
-            for lvl, s in ((lvl, lvl - lo) for lvl in range(lo + 1, hi + 1))
-        ]
-        if x is None:
-            ll = stream.ll[..., a0 >> k : a1 >> k, b0 >> k : b1 >> k]
-        else:
-            ll = x[..., (a0 >> k) - pa0 : (a1 >> k) - pa0, (b0 >> k) - pb0 : (b1 >> k) - pb0]
-        if stream.wavelet in _FLOAT_TILED:
-            steps = tuple(_scaled_steps(stream, i + 1) for i in range(lo, hi))
-            x = idwt97_multilevel_dequant(contiguous_aligned(ll), dets, steps, filt=_FLOAT_TILED[stream.wavelet],
-                                          recon_offset=recon_offset)
-        else:
-            x = idwt53_multilevel(contiguous_aligned(ll), dets, k, filt="legall5.3")
-        pa0, pb0 = a0, b0
-    x = _undo_color(stream, x)
+    windows = region_plan(stream, row0, row1, col0, col1)
+    x = _undo_color(stream, _inverse_passes(stream, 0, False, recon_offset, windows=windows))
     if emit_u8:
         x = _emit_native(stream, x)
-    return x[..., row0 - pa0 : row1 - pa0, col0 - pb0 : col1 - pb0]
+    _, _, a0, _, b0, _ = windows[-1]
+    return x[..., row0 - a0 : row1 - a0, col0 - b0 : col1 - b0]
 
 
 def decode_region(stream: CodeStream, row0: int, row1: int, col0: int, col1: int, emit_u8: bool = False,

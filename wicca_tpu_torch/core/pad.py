@@ -60,7 +60,8 @@ def pad_to_multiple(x: torch.Tensor, ratio: int, mode="replicate", constant=0) -
     """Pad the trailing two axes of ``x`` bottom/right to a multiple of
     ``ratio``; a no-op (the same tensor) when already aligned."""
     mode = normalize_border_mode(mode)
-    h, w = x.shape[-2], x.shape[-1]
+    shape = x.shape
+    h, w = shape[-2], shape[-1]
     dr, dc = pad_amounts(h, w, ratio)
     if dr == 0 and dc == 0:
         return x
@@ -77,5 +78,6 @@ def pad_to_multiple(x: torch.Tensor, ratio: int, mode="replicate", constant=0) -
 
 
 def unpad(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Crop the trailing two axes back to (h, w) — inverse of pad_to_multiple."""
-    return x[..., :h, :w]
+    """Crop the trailing two axes back to (h, w) — inverse of pad_to_multiple;
+    ``x`` itself where it has that extent."""
+    return x if x.shape[-2] == h and x.shape[-1] == w else x[..., :h, :w]

@@ -42,10 +42,10 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     _pad_dim_to,
     _planes,
     _require_cuda,
-    _stream,
     _tiled_extent,
     _tiling,
     contiguous_aligned,
+    launch_on_card,
 )
 from wicca_tpu_torch.utils.timing import spanned
 
@@ -178,8 +178,7 @@ def dwt53_multilevel(x: torch.Tensor, k: int, filt: str = "legall5.3", color: st
         return dwt53_multilevel_plain(x, k, filt, color)
     x = contiguous_aligned(_as_input(x))
     _require_cuda("dwt53_multilevel", x)
-    with torch.cuda.device(x.device):
-        return _launch_fwd(_build.library(), x, k, filt, _stream(x), color)
+    return launch_on_card(x.get_device(), _launch_fwd, x, k, filt, color=color)
 
 
 # ---------------------------------------------------------------------------
@@ -278,5 +277,4 @@ def idwt53_multilevel(ll: torch.Tensor, details, k: int, emit_u8: bool = False, 
     ll = contiguous_aligned(ll.to(torch.int32))
     details = [tuple(contiguous_aligned(b) for b in bands) for bands in details]
     _require_cuda("idwt53_multilevel", ll, *(b for bands in details for b in bands))
-    with torch.cuda.device(ll.device):
-        return _launch_inv(_build.library(), ll, details, k, emit_u8, orig_k, filt, _stream(ll), color)
+    return launch_on_card(ll.get_device(), _launch_inv, ll, details, k, emit_u8, orig_k, filt, color=color)

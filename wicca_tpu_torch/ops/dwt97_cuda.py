@@ -67,10 +67,10 @@ from wicca_tpu_torch.ops.dwt_cuda import (
     _planes,
     _quant_band,
     _require_cuda,
-    _stream,
     _tiled_extent,
     _tiling,
     contiguous_aligned,
+    launch_on_card,
 )
 from wicca_tpu_torch.utils.timing import spanned
 
@@ -243,8 +243,8 @@ def dwt97_multilevel_quant(x: torch.Tensor, steps: tuple, filt: str = "cdf97", c
         return dwt97_multilevel_quant_plain(x, steps, filt, color, chroma_gain)
     x = contiguous_aligned(_as_input(x))
     _require_cuda("dwt97_multilevel_quant", x)
-    with torch.cuda.device(x.device):
-        return _launch_fwd(_build.library(), x, _band_steps3(steps), filt, _stream(x), color, chroma_gain)
+    return launch_on_card(x.get_device(), _launch_fwd, x, _band_steps3(steps), filt, color=color,
+                          chroma_gain=chroma_gain)
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +352,5 @@ def idwt97_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: 
     ll = contiguous_aligned(ll.to(torch.float32))
     details = [tuple(contiguous_aligned(b) for b in bands) for bands in details]
     _require_cuda("idwt97_multilevel_dequant", ll, *(b for bands in details for b in bands))
-    with torch.cuda.device(ll.device):
-        return _launch_inv(_build.library(), ll, details, _band_steps3(steps), emit_u8, orig_k, filt, recon_offset,
-                           _stream(ll), color, chroma_gain)
+    return launch_on_card(ll.get_device(), _launch_inv, ll, details, _band_steps3(steps), emit_u8, orig_k, filt,
+                          recon_offset, color=color, chroma_gain=chroma_gain)

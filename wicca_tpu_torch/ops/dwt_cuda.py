@@ -19,12 +19,14 @@ tensor it launches its kernel (``csrc/haar_kernels.cu``) or raises; nothing
 falls back. Each launch adds one to :data:`LAUNCHES`; each wrapper call is
 the span ``ops.<wrapper>`` (:mod:`wicca_tpu_torch.utils.timing`).
 
-K2's and K3's launches are :class:`DwtPass` and :class:`IdwtPass`: one
-pass of a fixed geometry with its launch arguments packed once, holding no
-tensor. The wrappers build one per call; the codec's launch plans
-(:mod:`wicca_tpu_torch.codec.pipeline`) keep them per geometry and launch
-them through :func:`launch_on_card`, without the wrappers' checks and
-spans, counting each launch in :data:`LAUNCHES` all the same.
+Every launch of this module and of the other kernel modules goes through
+:func:`launch_on_card`, which picks the card's current stream and device
+context. K2's and K3's launches are :class:`DwtPass` and :class:`IdwtPass`:
+one pass of a fixed geometry with its launch arguments packed once, holding
+no tensor. The wrappers build one per call; the codec's launch plans
+(:mod:`wicca_tpu_torch.codec.pipeline`) keep them per geometry, without the
+wrappers' checks and spans, counting each launch in :data:`LAUNCHES` all
+the same, and run their plain twins on the CPU.
 
 K1-K3 work on semantic extents: for the pair-local Haar transform the JAX
 kernels' (512, 1024) tile padding never reaches a stored stream (the codec
@@ -137,22 +139,19 @@ def contiguous_aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def launch_on_card(index: int, launch, *args):
-    """``launch(lib, *args, stream)`` with the kernel library and the current
-    stream of card ``index``, inside that card's device context only when
-    another card is current. The raw stream comes from the call torch's own
-    generated code uses (``torch._C._cuda_getCurrentRawStream``), where this
-    torch has it."""
+def launch_on_card(index: int, launch, *args, **kwargs):
+    """``launch(lib, *args, stream=..., **kwargs)`` with the kernel library
+    and the current stream of card ``index``, inside that card's device
+    context only when another card is current: the one way from Python to
+    the kernels. The raw stream comes from the call torch's own generated
+    code uses (``torch._C._cuda_getCurrentRawStream``), where this torch has
+    it."""
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     stream = raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
     if torch.cuda.current_device() == index:
-        return launch(_build.library(), *args, stream)
+        return launch(_build.library(), *args, stream=stream, **kwargs)
     with torch.cuda.device(index):
-        return launch(_build.library(), *args, stream)
+        return launch(_build.library(), *args, stream=stream, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +220,7 @@ def icon(x: torch.Tensor, depth: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return icon_plain(x, depth)
     _require_cuda("icon", x)
-    with torch.cuda.device(x.device):
-        return _launch_icon(_build.library(), x, depth, _stream(x))
+    return launch_on_card(x.get_device(), _launch_icon, x, depth)
 
 
 # ---------------------------------------------------------------------------
@@ -287,14 +285,15 @@ class DwtPass:
     """One K2 launch of a fixed geometry with its arguments packed once: the
     input's shape and dtype and the pass's (lh, hl, hh) step triples fix
     every output's shape and dtype and the kernel's step and width arrays.
-    It holds no tensor; :meth:`launch` allocates fresh outputs each call.
+    It holds no tensor; :meth:`launch` allocates fresh outputs each call,
+    or with ``lib`` None runs the plain twin (a CPU input).
 
     With ``stack``, a level whose bands each fill a multiple of 16 bytes is
     one ``(3, ..., h, w)`` allocation, its bands the three views of
     ``unbind(0)``, made after the launch: three fewer allocations before
     the kernel is queued."""
 
-    __slots__ = ("k", "u8", "planes", "h", "w", "levels", "ll_shape", "invs", "is16")
+    __slots__ = ("k", "u8", "planes", "h", "w", "levels", "ll_shape", "triples", "invs", "is16")
 
     def __init__(self, shape, dtype, steps: tuple, stack: bool = False):
         k = len(steps)
@@ -306,13 +305,15 @@ class DwtPass:
             band = lead + (h >> lvl, w >> lvl)
             size = math.prod(band) * dt.itemsize
             self.levels.append((band, dt, size if stack and size % 16 == 0 else None))
-        self.ll_shape = lead + (h >> k, w >> k)
+        self.ll_shape, self.triples = lead + (h >> k, w >> k), steps
         self.invs = (ctypes.c_float * 9)(*(_inv(s) for lvl in steps for s in lvl))
         self.is16 = (ctypes.c_int * 3)(*(int(dt == torch.int16) for dt in dts))
 
     def launch(self, lib, x: torch.Tensor, stream: int):
         """K2 through ``lib`` on ``stream`` (``x`` of this geometry, checked):
         ``(ll_f32, [(lh, hl, hh), ...])`` fine to coarse."""
+        if lib is None:
+            return dwt_multilevel_quant_plain(x, self.triples)
         dev = x.device
         outs, ptrs = [], []
         for band, dt, size in self.levels:
@@ -346,8 +347,7 @@ def dwt_multilevel_quant(x: torch.Tensor, steps: tuple):
     if x.device.type == "cpu":
         return dwt_multilevel_quant_plain(x, steps)
     _require_cuda("dwt_multilevel_quant", x)
-    with torch.cuda.device(x.device):
-        return _launch_dwt(_build.library(), x, _band_steps3(steps), _stream(x))
+    return launch_on_card(x.get_device(), _launch_dwt, x, _band_steps3(steps))
 
 
 # ---------------------------------------------------------------------------
@@ -433,15 +433,16 @@ class IdwtPass:
     """One K3 launch of a fixed geometry with its arguments packed once: the
     LL's shape, each level's code dtype, the step triples, ``emit_u8`` and
     ``recon_offset`` fix the output and the kernel's step and width arrays.
-    It holds no tensor; :meth:`launch` allocates a fresh output each call."""
+    It holds no tensor; :meth:`launch` allocates a fresh output each call,
+    or with ``lib`` None runs the plain twin (CPU inputs)."""
 
-    __slots__ = ("k", "planes", "ch", "cw", "out_shape", "out_dtype", "steps", "is16", "offset", "u8")
+    __slots__ = ("k", "planes", "ch", "cw", "out_shape", "out_dtype", "triples", "steps", "is16", "offset", "u8")
 
     def __init__(self, ll_shape, code_dtypes, steps: tuple, emit_u8: bool, recon_offset: float):
         k = len(steps)
         self.k, self.planes, self.ch, self.cw = k, _planes(ll_shape), ll_shape[-2], ll_shape[-1]
         self.out_shape = tuple(ll_shape[:-2]) + (self.ch << k, self.cw << k)
-        self.out_dtype = torch.uint8 if emit_u8 else torch.float32
+        self.out_dtype, self.triples = torch.uint8 if emit_u8 else torch.float32, steps
         self.steps = (ctypes.c_float * 9)(*(_f32(s) for lvl in steps for s in lvl))
         self.is16 = (ctypes.c_int * 3)(*(int(dt == torch.int16) for dt in code_dtypes))
         self.offset, self.u8 = _f32(recon_offset), int(emit_u8)
@@ -449,6 +450,8 @@ class IdwtPass:
     def launch(self, lib, ll: torch.Tensor, details, stream: int) -> torch.Tensor:
         """K3 through ``lib`` on ``stream`` (``ll`` and ``details``, fine to
         coarse, of this geometry, checked)."""
+        if lib is None:
+            return idwt_multilevel_dequant_plain(ll, details, self.triples, bool(self.u8), self.offset)
         out = torch.empty(self.out_shape, dtype=self.out_dtype, device=ll.device)
         ptrs = (ctypes.c_void_p * 9)(*(b.data_ptr() for bands in details for b in bands))
         rc = lib.wicca_idwt_dequant(ll.data_ptr(), ptrs, self.is16, self.steps, self.offset, self.k, self.planes,
@@ -474,9 +477,7 @@ def idwt_multilevel_dequant(ll: torch.Tensor, details, steps: tuple, emit_u8: bo
     if ll.device.type == "cpu":
         return idwt_multilevel_dequant_plain(ll, details, steps, emit_u8, recon_offset)
     _require_cuda("idwt_multilevel_dequant", ll, *(b for bands in details for b in bands))
-    with torch.cuda.device(ll.device):
-        lib = _build.library()
-        return _launch_idwt(lib, ll, details, _band_steps3(steps), emit_u8, recon_offset, _stream(ll))
+    return launch_on_card(ll.get_device(), _launch_idwt, ll, details, _band_steps3(steps), emit_u8, recon_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -539,8 +540,7 @@ def dwt_level_quant(x: torch.Tensor, step: float = 1.0, quantize: bool = True):
         return dwt_level_quant_plain(x, step, quantize)
     x = contiguous_aligned(x.to(torch.float32))
     _require_cuda("dwt_level_quant", x)
-    with torch.cuda.device(x.device):
-        return _launch_dwt_level(_build.library(), x, step, quantize, _stream(x))
+    return launch_on_card(x.get_device(), _launch_dwt_level, x, step, quantize)
 
 
 # ---------------------------------------------------------------------------
@@ -604,5 +604,4 @@ def idwt_level_dequant(ll: torch.Tensor, lh, hl, hh, step: float = 1.0, quantize
     ll = contiguous_aligned(ll.to(torch.float32))
     bands = [contiguous_aligned(b if quantize else b.to(torch.float32)) for b in (lh, hl, hh)]
     _require_cuda("idwt_level_dequant", ll, *bands)
-    with torch.cuda.device(ll.device):
-        return _launch_idwt_level(_build.library(), ll, bands, step, quantize, _stream(ll))
+    return launch_on_card(ll.get_device(), _launch_idwt_level, ll, bands, step, quantize)

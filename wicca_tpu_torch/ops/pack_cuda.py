@@ -33,7 +33,7 @@ import math
 import torch
 
 from wicca_tpu_torch.ops import _build
-from wicca_tpu_torch.ops.dwt_cuda import _require_cuda, _stream, contiguous_aligned
+from wicca_tpu_torch.ops.dwt_cuda import _require_cuda, contiguous_aligned, launch_on_card
 from wicca_tpu_torch.utils.timing import spanned
 
 SEG = 4096  # escape-compaction segment (samples); kSeg in csrc/pack_kernels.cuh
@@ -196,8 +196,7 @@ def pack1_stats(planes) -> torch.Tensor:
     planes = _checked("pack1_stats", planes)
     if planes[0].device.type == "cpu":
         return pack1_stats_plain(planes)
-    with torch.cuda.device(planes[0].device):
-        return _launch_stats(_build.library(), planes, _stream(planes[0]))
+    return launch_on_card(planes[0].get_device(), _launch_stats, planes)
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +274,7 @@ def pack1_pack(planes, kcs, ll: torch.Tensor) -> torch.Tensor:
         return pack1_pack_plain(planes, kcs, ll)
     ll = contiguous_aligned(ll)
     _require_cuda("pack1_pack", planes[0], ll)
-    with torch.cuda.device(planes[0].device):
-        return _launch_pack(_build.library(), planes, kcs, ll, _stream(planes[0]))
+    return launch_on_card(planes[0].get_device(), _launch_pack, planes, kcs, ll)
 
 
 # ---------------------------------------------------------------------------
@@ -365,5 +363,4 @@ def pack1_unpack(buf: torch.Tensor, layout) -> list[torch.Tensor]:
         return pack1_unpack_plain(buf, layout)
     buf = contiguous_aligned(buf)
     _require_cuda("pack1_unpack", buf)
-    with torch.cuda.device(buf.device):
-        return _launch_unpack(_build.library(), buf, layout, _stream(buf))
+    return launch_on_card(buf.get_device(), _launch_unpack, buf, layout)

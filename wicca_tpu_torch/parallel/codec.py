@@ -8,10 +8,11 @@ sharded inverse.
 Per-shard kernels, no halo:
 
 * haar (K2/K3) and haar_int (K6/K7) are pair-local, so each rank runs the
-  single-device pass kernels on its block, and the gathered stream equals
-  the single-device encoder's bit for bit at any mesh shape. Stored
-  subbands are cropped to their semantic extent on both paths, which is
-  what keeps the streams independent of the mesh.
+  single-device cascades on its block (the Haar launch plan of the block's
+  geometry, the K6/K7 passes), and the gathered stream equals the
+  single-device encoder's bit for bit at any mesh shape. Stored subbands
+  are cropped to their semantic extent on both paths, which is what keeps
+  the streams independent of the mesh.
 * legall5.3 clamps at every (512, 1024) tile of a pass. Where the image
   aligns each rank's tile grid with the single-device encoder's
   (:func:`mesh53_aligned`), each rank runs K6/K7 and the stream again
@@ -38,8 +39,10 @@ import torch
 from wicca_tpu_torch.codec.pipeline import (
     CodeStream,
     _emit_native,
+    _forward,
+    _inverse,
     _normalize_roi,
-    _pass_sizes,
+    _pass_partition,
     _scaled_steps,
     _undo_color,
     _widen_div_int,
@@ -48,14 +51,7 @@ from wicca_tpu_torch.codec.pipeline import (
 from wicca_tpu_torch.core.color import ict_fwd_codec, rct_fwd_codec
 from wicca_tpu_torch.core.lifting import is_integer_wavelet
 from wicca_tpu_torch.core.quant import QuantSpec, dequantize_deadzone, quantize_deadzone
-from wicca_tpu_torch.ops.dwt53_cuda import dwt53_multilevel, idwt53_multilevel
-from wicca_tpu_torch.ops.dwt_cuda import (
-    _TILE_H,
-    _TILE_W,
-    contiguous_aligned,
-    dwt_multilevel_quant,
-    idwt_multilevel_dequant,
-)
+from wicca_tpu_torch.ops.dwt_cuda import _TILE_H, _TILE_W
 from wicca_tpu_torch.parallel.layout import (
     as_input,
     edge_map,
@@ -73,31 +69,8 @@ def mesh53_aligned(h_sem: int, w_sem: int, ty: int, tx: int, levels: int) -> boo
     ``(ty * 512, tx * 1024)``: then each rank's tile grid is the
     single-device encoder's (same tiles, same edge clamps) and the per-shard
     kernels reproduce the single-device stream."""
-    start = 0
-    for k in _pass_sizes(levels):
-        if (h_sem >> start) % (ty * _TILE_H) or (w_sem >> start) % (tx * _TILE_W):
-            return False
-        start += k
-    return True
-
-
-def _fused_encode_local(xl, levels: int, spec: QuantSpec, wavelet: str):
-    """This rank's passes over its (lh, lw) block (K2 for haar, K6 for the
-    integer wavelets), each pass's tile padding cropped back to the local
-    semantic extent."""
-    lh, lw = xl.shape[-2], xl.shape[-1]
-    ll, dets, lvl = xl, [], 0
-    for k in _pass_sizes(levels):
-        ll = contiguous_aligned(ll[..., : lh >> lvl, : lw >> lvl])
-        if wavelet == "haar":
-            ll, d = dwt_multilevel_quant(ll, tuple(spec.band_steps(lvl + i + 1) for i in range(k)))
-        else:
-            ll, d = dwt53_multilevel(ll, k, filt=wavelet)
-        for i, bands in enumerate(d, start=1):
-            g = lvl + i
-            dets.append(tuple(b[..., : lh >> g, : lw >> g] for b in bands))
-        lvl += k
-    return ll[..., : lh >> levels, : lw >> levels], dets
+    return not any((h_sem >> lo) % (ty * _TILE_H) or (w_sem >> lo) % (tx * _TILE_W)
+                   for lo, _ in _pass_partition(levels))
 
 
 def _color_step(color: str, chroma_gain: float):
@@ -150,11 +123,11 @@ def tiled_encode(
     fused = wavelet in ("haar", "haar_int") or (
         wavelet == "legall5.3" and mesh53_aligned(h_sem, w_sem, ty, tx, levels))
     if fused:
-        if wavelet == "haar" and xl.dtype != torch.uint8:
-            xl = xl.to(torch.float32)
-        elif wavelet != "haar" and xl.dtype != torch.uint8:
+        if wavelet != "haar" and xl.dtype != torch.uint8:
             xl = xl.to(torch.int32)  # integer lifting input (rct planes etc.)
-        ll, dets = _fused_encode_local(xl, levels, spec, wavelet)
+        # this rank's cascade over its (lh, lw) block, the single device's
+        # (the Haar plan of the block's geometry, or K6)
+        ll, dets = _forward(xl, levels, spec, wavelet)
         # pair-local: the mesh alignment padding is cropped away (semantic
         # shapes, the single-device stream's); aligned 5/3 has none
         eh, ew = (h_sem, w_sem) if wavelet != "legall5.3" else (ph, pw)
@@ -195,29 +168,6 @@ def _finish_decode(stream: CodeStream, xl: torch.Tensor, mesh, padded: tuple[int
     return to_dtensor(xl, mesh, padded, stream.orig_shape)
 
 
-def _fused_decode_local(local: CodeStream, emit_u8: bool, lh_out: int, lw_out: int):
-    """This rank's inverse passes (K3 for haar, K7 for the integer
-    wavelets) over ``local``, a stream of its blocks, coarse to fine."""
-    levels, wavelet, details = local.levels, local.wavelet, local.details
-    x, hi = local.ll, levels
-    for k in reversed(_pass_sizes(levels)):
-        lo = hi - k
-        use = [tuple(contiguous_aligned(b) for b in details[i]) for i in range(lo, hi)]
-        ch, cw = use[-1][0].shape[-2], use[-1][0].shape[-1]
-        x = contiguous_aligned(x[..., :ch, :cw])
-        last = emit_u8 and lo == 0
-        if wavelet == "haar":
-            steps = tuple(_scaled_steps(local, i + 1) for i in range(lo, hi))
-            x = idwt_multilevel_dequant(x.to(torch.float32), use, steps, emit_u8=last)
-        else:
-            use = [tuple(b.to(torch.int16) for b in bands) for bands in use]
-            x = idwt53_multilevel(x, use, k, emit_u8=last, filt=wavelet)
-        hi = lo
-    # drop the kernels' per-shard tile padding so the blocks abut at the
-    # local semantic extent
-    return x[..., :lh_out, :lw_out]
-
-
 def tiled_decode(stream: CodeStream, *, mesh, emit_u8: bool = False):
     """Sharded inverse of :func:`tiled_encode` (a DTensor of the original
     dims). haar and haar_int streams, and mesh-aligned legall5.3 streams,
@@ -246,8 +196,10 @@ def tiled_decode(stream: CodeStream, *, mesh, emit_u8: bool = False):
 
         local = _plain_codes(stream, grown(stream.ll, levels),
                              [tuple(grown(b, lvl) for b in stream.details[lvl - 1]) for lvl in range(1, levels + 1)])
-        u8_in = emit_u8 and stream.color == "none"
-        xl = _fused_decode_local(dataclasses.replace(local, wavelet=wavelet), u8_in, h_dec // ty, w_dec // tx)
+        # this rank's inverse cascade over its blocks (the Haar plan or K7),
+        # without the kernels' per-shard tile padding, so the blocks abut at
+        # the local semantic extent
+        xl = _inverse(local, 0, emit_u8 and stream.color == "none", 0.5)[..., : h_dec // ty, : w_dec // tx]
         return _finish_decode(stream, xl, mesh, (h_dec, w_dec), emit_u8)
 
     if stream.layout == "tiled" and stream.wavelet not in ("haar", "haar_int"):
@@ -262,7 +214,8 @@ def tiled_decode(stream: CodeStream, *, mesh, emit_u8: bool = False):
         if integer:
             details.append(tuple(b.to(torch.int32) for b in bands))
         else:
-            details.append(tuple(dequantize_deadzone(b, s) for b, s in zip(bands, _scaled_steps(local, lvl))))
+            details.append(tuple(dequantize_deadzone(b, s)
+                                 for b, s in zip(bands, _scaled_steps(local.spec, local.band_div, lvl))))
     xl = _idwt_local(local.ll.to(torch.int32 if integer else torch.float32), details, stream.wavelet, mesh)
     return _finish_decode(stream, xl, mesh, (xl.shape[-2] * ty, xl.shape[-1] * tx), emit_u8)
 
