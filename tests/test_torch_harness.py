@@ -394,6 +394,126 @@ def test_classifiers_serialize_with_parallel_1(data_folder, classifiers, tmp_pat
     assert "ok" in res and "a" not in res
 
 
+class _CountingCoder:
+    """A custom coder (``get_small_copy``: a strided subsample) that counts
+    the icons it has made, for classifiers that wait on that count."""
+
+    def __init__(self):
+        self.made = 0
+        self.cond = threading.Condition()
+
+    def get_small_copy(self, image, depth):
+        icon = np.ascontiguousarray(image[:: 1 << depth, :: 1 << depth])
+        with self.cond:
+            self.made += 1
+            self.cond.notify_all()
+        return icon
+
+    def wait_for(self, n, timeout=10.0):
+        with self.cond:
+            return self.cond.wait_for(lambda: self.made >= n, timeout)
+
+
+class _GatedModel:
+    """The deterministic model, keeping every batch it is fed; with a coder,
+    each call for batch b first waits until the coder has made batch b+1's
+    icons (``overlapped`` records whether it came); it raises at call
+    ``raise_at``."""
+
+    def __init__(self, model, coder=None, batch_size=2, n_images=6, raise_at=None):
+        self.model, self.coder, self.batch_size, self.n_images = model, coder, batch_size, n_images
+        self.raise_at = raise_at
+        self.fed: list[np.ndarray] = []
+        self.overlapped: list[bool] = []
+
+    def __call__(self, batch):
+        call = len(self.fed)
+        self.fed.append(np.array(batch))
+        if self.coder is not None:
+            batch_index = call // 2  # a batch is fed twice: its sources, then its icons
+            self.overlapped.append(self.coder.wait_for(min(self.batch_size * (batch_index + 2), self.n_images)))
+        if call == self.raise_at:
+            raise RuntimeError("boom")
+        return self.model(batch)
+
+
+def _gated(coder=None, raise_at=None):
+    clf = deterministic_classifier(decode_predictions)
+    clf[MODEL] = _GatedModel(clf[MODEL], coder, raise_at=raise_at)
+    return clf
+
+
+def test_batches_classify_under_the_next_batchs_icons(data_folder, tmp_path):
+    """Batch n's classification finishes only after the main thread has made
+    batch n+1's icons, and the rows, their order and the batches fed equal
+    the JAX harness's, which runs one batch at a time."""
+    common = dict(transform_depth=2, interpolation=3, top_classes=5, log_info=False, batch_size=2)
+    jax_clf = deterministic_classifier(jax_decode)
+    jax_clf[MODEL] = _GatedModel(jax_clf[MODEL])
+    JaxProcessor(data_folder, results_folder=tmp_path / "jax", wavelet_coder=_CountingCoder(),
+                 **common).process_classifiers({"det": jax_clf})
+    coder = _CountingCoder()
+    port_clf = _gated(coder)
+    ClassifierProcessor(data_folder, results_folder=tmp_path / "port", wavelet_coder=coder, **common,
+                        **CPU).process_classifiers({"det": port_clf}, timeout=60)
+    assert port_clf[MODEL].overlapped == [True] * 6
+    assert len(port_clf[MODEL].fed) == len(jax_clf[MODEL].fed) == 6
+    for port_batch, jax_batch in zip(port_clf[MODEL].fed, jax_clf[MODEL].fed):
+        np.testing.assert_array_equal(port_batch, jax_batch)
+    for suffix in ("det-depth-2.csv", "det-summary-depth-2.csv"):
+        assert (tmp_path / "port" / "depth-2" / suffix).read_bytes() == (
+            tmp_path / "jax" / "depth-2" / suffix).read_bytes()
+
+
+def test_a_classifier_raising_with_the_next_batch_ready(data_folder, tmp_path, caplog):
+    """A classifier that raises in batch 2 of 3, once batch 3's icons are
+    made: one warning, no results of its own and no batch 3 fed to it; the
+    other classifier's CSVs are those of a run without it."""
+    common = dict(transform_depth=1, top_classes=3, log_info=False, batch_size=2, **CPU)
+    coder = _CountingCoder()
+    flaky = _gated(coder, raise_at=2)  # batch 2's sources
+    with caplog.at_level(logging.WARNING):
+        out = ClassifierProcessor(data_folder, results_folder=tmp_path / "both", wavelet_coder=coder,
+                                  **common).process_classifiers({"flaky": flaky, "det": _gated()}, timeout=60)
+    assert set(out) == {"det"}
+    assert sum("'flaky'" in r.getMessage() for r in caplog.records) == 1
+    assert flaky[MODEL].overlapped == [True] * 3 and len(flaky[MODEL].fed) == 3
+    ClassifierProcessor(data_folder, results_folder=tmp_path / "alone", wavelet_coder=_CountingCoder(),
+                        **common).process_classifiers({"det": _gated()})
+    both, alone = tmp_path / "both" / "depth-1", tmp_path / "alone" / "depth-1"
+    assert not (both / "flaky-depth-1.csv").exists()
+    assert len(pd.read_csv(both / "det-depth-1.csv")) == 6
+    for suffix in ("det-depth-1.csv", "det-summary-depth-1.csv"):
+        assert (both / suffix).read_bytes() == (alone / suffix).read_bytes()
+
+
+def test_hung_classifier_with_a_batch_in_flight_returns_by_the_deadline(data_folder, classifiers, tmp_path):
+    """A model that hangs on batch 1 while batch 2 is decoded and iconed:
+    the call returns at its deadline with the other classifier's rows, and
+    the hung one is fed nothing more."""
+    release = threading.Event()
+    fed = []
+
+    class HungModel:
+        def __call__(self, batch):
+            fed.append(len(batch))
+            release.wait(60)
+            return np.zeros((len(batch), 1000), np.float32)
+
+    hung = load_single_model(HungModel, shape=(32, 32), **CPU)
+    proc = ClassifierProcessor(data_folder, transform_depth=1, top_classes=3, results_folder=tmp_path / "h",
+                               log_info=False, batch_size=2, **CPU)
+    try:
+        t0 = time.time()
+        out = proc.process_classifiers({"tiny": classifiers["tiny"], "hung": hung}, timeout=2)
+        elapsed = time.time() - t0
+    finally:
+        release.set()
+    assert elapsed < 4.0
+    assert "tiny" in out and "hung" not in out
+    assert fed == [2]
+
+
 def test_the_harness_needs_a_card_or_device_cpu(data_folder, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

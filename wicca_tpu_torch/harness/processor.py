@@ -17,7 +17,8 @@ into the reference-layout CSVs and ``run-metrics.json``.
   where it is priced lower.
 * Resizes stay on host cv2 with the caller's interpolation, as the
   reference does; classifiers fan out over threads (the reference's
-  ``parallel``).
+  ``parallel``) and run one batch behind the main thread, which decodes
+  and icons the next batch meanwhile.
 
 The constructor signature and the CSV layout are the reference's, plus
 ``device``: CUDA unless the caller passes ``device='cpu'``; with no card and
@@ -282,17 +283,30 @@ class ClassifierProcessor:
         """One depth: stream images, icon once each, run every classifier on
         the shared batch.
 
+        A one-batch pipeline: while the classifiers run batch n, the main
+        thread takes batch n+1 from the decode pool and makes its icons;
+        then it collects batch n and only then submits batch n+1. At most
+        one batch is in the classifiers, and batches enter each classifier
+        and its rows enter the results in the folder's order. Each batch
+        owns its file and image lists, so no worker sees them change.
+
         Fault isolation and timeout: each classifier's resize, preprocess
         and inference run in a worker thread; an exception disables that
-        classifier (logged; the others go on), and ``deadline`` bounds even
-        a hung model call through ``future.result(timeout=...)``: the call is
-        abandoned (its thread finishes in the background) and partial
-        results persist.
+        classifier from the next batch on (logged; the others go on), and
+        ``deadline`` bounds even a hung model call through
+        ``future.result(timeout=...)``: the call is abandoned (its thread
+        finishes in the background) and partial results persist, each batch
+        a classifier had finished by then among them.
+
+        Counters (under a profiler session, :mod:`wicca_tpu_torch.utils.timing`):
+        ``harness.batches`` once per batch collected, and
+        ``harness.classify_hidden`` where every classifier had finished that
+        batch before the main thread came to wait on it.
         """
         from concurrent.futures import ThreadPoolExecutor
         from concurrent.futures import TimeoutError as FutureTimeout
 
-        from wicca_tpu_torch.utils.timing import StageTimer
+        from wicca_tpu_torch.utils.timing import StageTimer, count
 
         files = list_images(self.path)
         shapes = {name: clf[SHAPE] for name, clf in classifiers.items()}
@@ -300,10 +314,6 @@ class ClassifierProcessor:
         preds: dict[str, dict[str, dict]] = {name: {} for name in classifiers}
         failed: set[str] = set()
         timed_out = False
-
-        batch_files: list[str] = []
-        batch_images: list[np.ndarray] = []
-        batches = 0  # flushed so far: the per-batch spans' argument
 
         timer = StageTimer()
         pool = ThreadPoolExecutor(max_workers=self._classifier_workers(len(classifiers)),
@@ -322,31 +332,42 @@ class ClassifierProcessor:
                 rows[kind] = dec(logits, top=self.top)
             return rows
 
-        def flush() -> None:
-            nonlocal timed_out, batches
-            if not batch_files:
-                return
-            batches += 1
-            with timer.stage("icon_dwt", batches):
+        def make_icons(images: list[np.ndarray], index: int) -> list[np.ndarray]:
+            with timer.stage("icon_dwt", index):
                 if self.compare == "reconstruction":
-                    icons = [self._reconstruction(img, depth) for img in batch_images]
-                elif self.coder is not None and hasattr(self.coder, "get_small_copy"):
-                    icons = [self.coder.get_small_copy(img, depth) for img in batch_images]
-                else:
-                    icons = _compute_icons_batched(batch_images, depth, self.device)
+                    return [self._reconstruction(img, depth) for img in images]
+                if self.coder is not None and hasattr(self.coder, "get_small_copy"):
+                    return [self.coder.get_small_copy(img, depth) for img in images]
+                return _compute_icons_batched(images, depth, self.device)
+
+        def submit(index: int, names: list[str], images: list[np.ndarray], icons: list[np.ndarray]):
+            """Queues the batch on every classifier that has not failed; the
+            batch's record for :func:`collect`."""
             futures: dict[str, Any] = {}
-            for name, clf in classifiers.items():
-                if name in failed or timed_out:
-                    continue
-                futures[name] = pool.submit(run_classifier, clf, shapes[name], batch_images, icons)
+            if not timed_out:
+                for name, clf in classifiers.items():
+                    if name not in failed:
+                        futures[name] = pool.submit(run_classifier, clf, shapes[name], images, icons)
+            return index, names, futures
+
+        def collect(record) -> None:
+            """Waits on the batch's futures in the classifiers' order and
+            keeps their rows."""
+            nonlocal timed_out
+            index, names, futures = record
+            if not futures:
+                return
+            count("harness.batches", 1)
+            if all(future.done() for future in futures.values()):
+                count("harness.classify_hidden", 1)
             for name, future in futures.items():
                 remaining = None if deadline is None else deadline - time.time()
                 if remaining is not None and remaining <= 0:
                     timed_out = True
                 try:
-                    if timed_out:
+                    if timed_out and not future.done():
                         raise FutureTimeout()
-                    with timer.stage("wait_classifiers", batches):
+                    with timer.stage("wait_classifiers", index):
                         rows = future.result(timeout=remaining)
                 except FutureTimeout:
                     if not future.cancel():  # running or done: abandon it
@@ -364,13 +385,26 @@ class ClassifierProcessor:
                     failed.add(name)
                     continue
                 for kind, decoded_rows in rows.items():
-                    for fname, row in zip(batch_files, decoded_rows):
+                    for fname, row in zip(names, decoded_rows):
                         preds[name].setdefault(fname, {})[kind] = [row]
-            batch_files.clear()
-            batch_images.clear()
+
+        batches = 0  # made so far: the per-batch spans' argument
+        in_flight = None  # the record of the batch in the classifiers
+
+        def advance(names: list[str], images: list[np.ndarray]) -> None:
+            """Icons of a full batch under the classification of the one
+            before, then that one collected and this one submitted."""
+            nonlocal batches, in_flight
+            batches += 1
+            icons = make_icons(images, batches)
+            if in_flight is not None:
+                collect(in_flight)
+            in_flight = submit(batches, names, images, icons)
 
         n_pixels = 0
         t_start = time.time()
+        batch_files: list[str] = []
+        batch_images: list[np.ndarray] = []
         decoded = iter_decoded(files, num_threads=self.parallel or 8)
         while not timed_out:
             with timer.stage("decode"):
@@ -380,6 +414,7 @@ class ClassifierProcessor:
                     break
             if deadline is not None and time.time() > deadline:
                 logging.warning("Processing timed out; returning partial results")
+                timed_out = True
                 break
             if image is None:
                 logging.warning(f"Skipping unreadable file {path.name}")
@@ -388,8 +423,12 @@ class ClassifierProcessor:
             batch_files.append(path.name)
             batch_images.append(image)
             if len(batch_files) >= self.batch_size:
-                flush()
-        flush()
+                advance(batch_files, batch_images)
+                batch_files, batch_images = [], []
+        if batch_files and not timed_out:
+            advance(batch_files, batch_images)
+        if in_flight is not None:
+            collect(in_flight)
         # a timed-out worker may still be running a hung model call; don't wait
         pool.shutdown(wait=False)
 

@@ -25,7 +25,9 @@ The names, by layer:
   (``decode``, the main thread's wait on the decode pool; ``icon_dwt``;
   ``resize`` and ``inference`` on the classifier threads;
   ``wait_classifiers``, the main thread's wait on them; ``results``, the
-  comparison, summaries and CSVs);
+  comparison, summaries and CSVs), and the counters ``harness.batches``
+  (batches collected from the classifiers) and ``harness.classify_hidden``
+  (those the classifiers had finished before the main thread came to them);
 * ``data.load_image`` (argument: the file name) on the decode pool, and the
   counter ``data.decoded_mp``;
 * ``model.upload``, ``model.forward`` (the forward's host dispatch),
