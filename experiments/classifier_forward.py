@@ -1,21 +1,23 @@
-"""Swin-L/384 (the registry's ``SwinL384``) on a CUDA card: one batch forward
-at a time, as ``TorchClassifier`` runs it, with the benchmark's seeded
-weights (``benchmark/reference/swin.py``).
+"""A classifier of the benchmark's configurations (``swin-l384`` by default,
+``maxvit-xl512``: the registry's ``SwinL384``, ``MaxViTXL512``) on a CUDA
+card: one batch forward at a time, as ``TorchClassifier`` runs it, with the
+benchmark's seeded weights (the configuration's ``reference``).
 
-    python3 experiments/swin_forward.py [--batches 25 14] [--seed 7]
+    python3 experiments/classifier_forward.py [--config swin-l384] [--batches 25 14] [--seed 7]
 
 Prints one JSON line: the card and its power limit; per batch size the
 device milliseconds of a forward (CUDA events, the forward queued behind a
 spin kernel, median of 5), the host milliseconds to queue it there and on
-an idle device, the peak
-memory, and the largest logit gap (|port - reference| over the reference's
-largest |logit|, per row) of the bfloat16 port and of the float8 control
-against the float32 reference on seeded inputs; the spans and counts one
-forward makes; and the ten device operations that took most time in one
-profiled forward of the first batch size, with their share.
+an idle device, the peak memory, and the largest logit gap (|port -
+reference| over the reference's largest |logit|, per row) of the bfloat16
+port and of the float8 control against the float32 reference on seeded
+inputs; the spans and counts one forward makes; and the ten device
+operations that took most time in one profiled forward of the first batch
+size, with their share.
 """
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -25,14 +27,12 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from benchmark.reference import swin as ref  # noqa: E402
 from wicca_tpu_torch.models import registry  # noqa: E402
 from wicca_tpu_torch.utils import timing  # noqa: E402
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark", "configs",
-                      "swin-l384.json")
 SPIN_CYCLES = 200_000_000
 
 
@@ -42,16 +42,19 @@ def gap(got, want) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="swin-l384")
     ap.add_argument("--batches", type=int, nargs="+", default=[25, 14])
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
-    cfg = json.loads(open(CONFIG).read())
+    cfg = json.loads(open(os.path.join(ROOT, "benchmark", "configs", f"{args.config}.json")).read())
+    ref = importlib.import_module(os.path.splitext(cfg["reference"])[0].replace("/", "."))
+    size = tuple(cfg["input_size"])
     power = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"], capture_output=True,
                            text=True).stdout.strip()
     out = {"card": torch.cuda.get_device_name(dev), "power_limit": power}
     t0 = time.perf_counter()
-    module = registry.build("SwinL384", tuple(cfg["input_size"])).to(dev).eval()
+    module = registry.build(cfg["architecture"], size).to(dev).eval()
     weights = ref.make_weights(cfg, args.seed, dev)
     module.load_state_dict(dict(zip(module.state_dict(), weights)), strict=True)
     torch.cuda.synchronize(dev)
@@ -59,7 +62,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     out["batches"] = {}
     for b in args.batches:
-        pixels = torch.randint(0, 256, (b, 384, 384, 3), generator=gen, device=dev, dtype=torch.uint8)
+        pixels = torch.randint(0, 256, (b, *size, 3), generator=gen, device=dev, dtype=torch.uint8)
         x = ref.preprocess(pixels.cpu()).to(dev)
         nchw = x.permute(0, 3, 1, 2)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -90,7 +93,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated(dev)
         want = torch.cat([ref.forward(x[i : i + 8], weights, cfg) for i in range(0, b, 8)])
         low = torch.cat([ref.forward(x[i : i + 8], weights, cfg, fp8=True) for i in range(0, b, 8)])
-        flops = ref.flops(cfg, 384, 384) * b
+        flops = ref.flops(cfg, *size) * b
         med = statistics.median(dev_ms)
         out["batches"][b] = {"device_ms": dev_ms, "host_ms": host_ms, "spin_ms": spin_ms,
                              "idle_host_ms": idle_host_ms, "memory_peak_bytes": peak,
@@ -99,7 +102,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     b = args.batches[0]
-    x = torch.zeros(b, 3, 384, 384, device=dev)
+    x = torch.zeros(b, 3, *size, device=dev)
     timing.reset()
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         module(x)

@@ -163,8 +163,9 @@ def test_same_padding_is_flax_s(n, k, s):
 def test_available_architectures_are_the_jax_zoo_s_less_nasnet():
     """NASNetMobile is ported too now (``tests/test_torch_nasnet.py``): the
     names are the JAX registry's, in its order, then the port's own
-    (``SwinL384``, which the JAX package does not have), and no other."""
-    assert available_architectures() == jreg.available_architectures() + ("SwinL384",)
+    (``SwinL384`` and ``MaxViTXL512``, which the JAX package does not
+    have), and no other."""
+    assert available_architectures() == jreg.available_architectures() + ("SwinL384", "MaxViTXL512")
 
 
 @pytest.mark.parametrize("name", ["preprocess_minus1_1", "preprocess_caffe", "preprocess_torch"])

@@ -127,7 +127,7 @@ def test_a_path_the_build_did_not_take_raises():
 
 
 def test_registry_and_converter_names_equal_the_jax_package_s():
-    assert registry.available_architectures() == jreg.available_architectures() + ("SwinL384",)
+    assert registry.available_architectures() == jreg.available_architectures() + ("SwinL384", "MaxViTXL512")
     assert cw.convertible_architectures() == jcw.convertible_architectures()
     assert registry._ARCHITECTURES["NASNetMobile"][0] is NASNetMobileKeras
     assert registry._ARCHITECTURES["NASNetMobile"][1].__name__ == jreg._ARCHITECTURES["NASNetMobile"][1].__name__

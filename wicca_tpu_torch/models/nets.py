@@ -4,7 +4,8 @@
 registry's checkpoint graph is :mod:`wicca_tpu_torch.models.nasnet_keras`),
 ``VGG`` (``VGG16``, ``VGG19``), ``DenseNet121`` and ``ViT`` (``ViTS16``,
 ``ViTTiny16``), at their published widths; and ``SwinTransformer``
-(``SwinL384``), which the JAX package does not have.
+(``SwinL384``) and ``MaxViT`` (``MaxViTXL512``), which the JAX package does
+not have.
 
 Every model takes an NCHW float32 batch and returns float32 logits. The
 Flax modules' numerics are mirrored:
@@ -28,12 +29,15 @@ Flax modules' numerics are mirrored:
 
 The Swin Transformer follows the published model instead (LayerNorm epsilon
 1e-5, exact GELU, its module names) and computes as the zoo does: bfloat16
-matmuls, float32 norms and residual stream.
+matmuls, float32 norms and residual stream. MaxViT does the same (LayerNorm
+epsilon 1e-5, BatchNorm 1e-3, the tanh GELU of the TF release) and shares
+Swin's relative-bias window attention (:class:`WindowAttention`).
 
 VGG's first dense layer and ViT's position embedding depend on the input
-size, so those two take ``image_size``; so do Swin, whose windows and
-shift masks follow the token grid, and the NASNets, whose cells pick
-their ``adjust`` path from the input's geometry (:class:`Compact`).
+size, so those two take ``image_size``; so do Swin and MaxViT, whose
+windows (and Swin's shift masks) follow the token grid, and the NASNets,
+whose cells pick their ``adjust`` path from the input's geometry
+(:class:`Compact`).
 Parameters are created empty: :func:`init_weights` fills them
 deterministically from a ``torch.Generator`` (values differ from JAX's
 init), or a state dict is loaded.
@@ -781,12 +785,14 @@ def _unwindows(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
     return x.reshape(-1, h, w, c)
 
 
-class SwinWindowAttention(nn.Module):
-    """W-MSA: multi-head self-attention inside each window, with a learned
+class WindowAttention(nn.Module):
+    """Multi-head self-attention inside each window, with a learned
     relative position bias per head (``relative_position_bias_table``,
-    indexed by :func:`swin_relative_index`) and, in a shifted block, the
-    shift mask. ``qkv`` and ``proj`` run in ``dtype``; the scores, bias,
-    mask and softmax in float32, as autocast runs the published model."""
+    indexed by :func:`swin_relative_index`) and an optional additive mask:
+    Swin's W-MSA (the shift mask in a shifted block) and MaxViT's block
+    and grid attention (no mask). ``qkv`` and ``proj`` run in ``dtype``;
+    the scores, bias, mask and softmax in float32, as autocast runs the
+    published models."""
 
     def __init__(self, dim: int, heads: int, window: int, dtype=torch.bfloat16):
         super().__init__()
@@ -797,8 +803,9 @@ class SwinWindowAttention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype)
         self.register_buffer("relative_position_index", swin_relative_index(window), persistent=False)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        """``x``: (B * windows, window**2, dim) -> the same shape, in ``dtype``."""
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``x``: (B * windows, window**2, dim) -> the same shape, in ``dtype``;
+        ``mask``: (windows, window**2, window**2), the windows of one image."""
         bw, n, dim = x.shape
         qkv = self.qkv(x).view(bw, n, 3, self.heads, dim // self.heads).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
@@ -813,14 +820,21 @@ class SwinWindowAttention(nn.Module):
         return self.proj((attn @ v).transpose(1, 2).reshape(bw, n, dim))
 
 
-class SwinMlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16):
+SwinWindowAttention = WindowAttention  # Swin's name for it
+
+
+class Mlp(nn.Module):
+    """``fc2(GELU(fc1(x)))``: the exact GELU (Swin) or its tanh form
+    (``approximate='tanh'``, MaxViT)."""
+
+    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16, approximate: str = "none"):
         super().__init__()
+        self.approximate = approximate
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))  # exact GELU
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class SwinBlock(nn.Module):
@@ -835,9 +849,9 @@ class SwinBlock(nn.Module):
         super().__init__()
         self.grid, self.window, self.shift, self.dtype = grid, window, shift, dtype
         self.norm1 = LayerNorm(dim, _SWIN_EPS)
-        self.attn = SwinWindowAttention(dim, heads, window, dtype)
+        self.attn = WindowAttention(dim, heads, window, dtype)
         self.norm2 = LayerNorm(dim, _SWIN_EPS)
-        self.mlp = SwinMlp(dim, dim * mlp_ratio, dtype)
+        self.mlp = Mlp(dim, dim * mlp_ratio, dtype)
         mask = swin_shift_mask(grid, window, shift) if shift else None
         self.register_buffer("attn_mask", mask, persistent=False)
         self.windows = (grid[0] // window) * (grid[1] // window)
@@ -946,6 +960,202 @@ def SwinL384(image_size=(384, 384), **kw) -> SwinTransformer:
 
 
 # ---------------------------------------------------------------------------
+# MaxViT (Tu et al. 2022, arXiv:2204.01697)
+# ---------------------------------------------------------------------------
+
+_MAXVIT_BN_EPS = 1e-3  # the TF release's BatchNorm epsilon
+_MAXVIT_LN_EPS = 1e-5
+
+
+def maxvit_stages(image_size, stages: int, window: int) -> list[tuple[tuple[int, int], int]]:
+    """Each stage's token grid (h, w) and partition size ``min(window, h,
+    w)`` at ``image_size``: the stem and each stage's first block halve
+    the grid. Raises ``ValueError``, naming the grid at fault, where a
+    halving meets an odd side or the partitions do not tile a stage's
+    grid."""
+    h, w = image_size
+    out = []
+    for s in range(stages + 1):
+        if h % 2 or w % 2:
+            raise ValueError(f"MaxViT cannot tile {tuple(image_size)}: the {h}x{w} grid before "
+                             f"{'stage ' + str(s - 1) if s else 'the stem'} does not halve")
+        h, w = h // 2, w // 2
+        p = min(window, h, w)
+        if s and (h % p or w % p):
+            raise ValueError(f"MaxViT cannot tile {tuple(image_size)}: stage {s - 1}'s {h}x{w} tokens are not "
+                             f"tiled by {p}x{p} windows")
+        out.append(((h, w), p))
+    return out[1:]
+
+
+def _grid_windows(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, h, w, C) -> (B * windows, p**2, C): window (a, b), windows
+    row-major, holds the tokens (i h/p + a, j w/p + b), i, j < p, row-major."""
+    b, h, w, c = x.shape
+    x = x.view(b, p, h // p, p, w // p, c).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(-1, p * p, c)
+
+
+def _ungrid_windows(x: torch.Tensor, p: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of :func:`_grid_windows`."""
+    c = x.shape[-1]
+    x = x.view(-1, h // p, w // p, p, p, c).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(-1, h, w, c)
+
+
+class MaxViTStem(nn.Module):
+    """Conv3x3 stride 2 (bias), BatchNorm, GELU (tanh form), Conv3x3 (bias);
+    'SAME' padding."""
+
+    def __init__(self, dim: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.conv1 = Conv(3, dim, 3, 2, dtype=dtype)
+        self.norm1 = BatchNorm(dim, _MAXVIT_BN_EPS)
+        self.conv2 = Conv(dim, dim, 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(F.gelu(self.norm1(self.conv1(x)), approximate="tanh"))
+
+
+class MaxViTMBConv(nn.Module):
+    """Pre-norm MBConv, NCHW: ``BN0``, a 1x1 expansion to ``expand`` x
+    ``dim`` (no bias), BN, GELU, a 3x3 depthwise convolution with the
+    block's stride (no bias), BN, GELU, squeeze-excite (SiLU, reducing to
+    ``dim / 4``), a 1x1 projection to ``dim`` (bias); plus the input, or,
+    where the stride or the width changes, a 2x2 stride-2 average of the
+    input (at stride 2) through a 1x1 convolution (bias). Float32 out; the
+    span ``model.maxvit.mbconv``."""
+
+    def __init__(self, cin: int, dim: int, stride: int, expand: int = 4, dtype=torch.bfloat16):
+        super().__init__()
+        mid = dim * expand
+        self.stride = stride
+        self.pre_norm = BatchNorm(cin, _MAXVIT_BN_EPS)
+        self.conv1_1x1 = Conv(cin, mid, 1, bias=False, dtype=dtype)
+        self.norm1 = BatchNorm(mid, _MAXVIT_BN_EPS)
+        self.conv2_kxk = Conv(mid, mid, 3, stride, groups=mid, bias=False, dtype=dtype)
+        self.norm2 = BatchNorm(mid, _MAXVIT_BN_EPS)
+        self.se = _SqueezeExcite(mid, dim, dtype=dtype)
+        self.conv3_1x1 = Conv(mid, dim, 1, dtype=dtype)
+        self.shortcut = Conv(cin, dim, 1, dtype=dtype) if stride != 1 or cin != dim else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("model.maxvit.mbconv"):
+            y = F.gelu(self.norm1(self.conv1_1x1(self.pre_norm(x))), approximate="tanh")
+            y = F.gelu(self.norm2(self.conv2_kxk(y)), approximate="tanh")
+            y = self.conv3_1x1(self.se(y)).float()
+            if self.shortcut is None:
+                return x.float() + y
+            if self.stride != 1:
+                x = F.avg_pool2d(x.float(), self.stride, self.stride)
+            return self.shortcut(x).float() + y
+
+
+class MaxViTPartitionAttention(nn.Module):
+    """``x + PA(LN(x))`` then ``x + MLP(LN(x))`` on a float32 residual
+    stream of (B, h, w, C) tokens. PA partitions the grid into ``p x p``
+    windows, blocks (``partition='block'``: window (a, b) holds the tokens
+    (a p + i, b p + j)) or a dilated grid (``'grid'``: (i h/p + a, j w/p +
+    b)), attends within each window with the relative bias and no mask,
+    and puts each token back; the span ``model.maxvit.<partition>_attention``
+    covers it, and the counter ``model.maxvit.windows`` counts the window
+    attentions queued."""
+
+    def __init__(self, dim: int, heads: int, grid: tuple[int, int], window: int, partition: str, mlp_ratio: int = 4,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.grid, self.window, self.dtype = grid, window, dtype
+        self.part, self.unpart = {"block": (_windows, _unwindows), "grid": (_grid_windows, _ungrid_windows)}[partition]
+        self.span_name = f"model.maxvit.{partition}_attention"
+        self.windows = (grid[0] // window) * (grid[1] // window)
+        self.norm1 = LayerNorm(dim, _MAXVIT_LN_EPS)
+        self.attn = WindowAttention(dim, heads, window, dtype)
+        self.norm2 = LayerNorm(dim, _MAXVIT_LN_EPS)
+        self.mlp = Mlp(dim, dim * mlp_ratio, dtype, approximate="tanh")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        (h, w), p = self.grid, self.window
+        y = self.norm1(x)
+        with span(self.span_name):
+            y = self.unpart(self.attn(self.part(y.to(self.dtype), p)), p, h, w)
+            count("model.maxvit.windows", b * self.windows)
+        x = x + y.float()
+        return x + self.mlp(self.norm2(x).to(self.dtype)).float()
+
+
+class MaxViTBlock(nn.Module):
+    """MBConv on NCHW, then block attention and grid attention on the same
+    tensor seen as NHWC tokens."""
+
+    def __init__(self, cin: int, dim: int, stride: int, heads: int, grid: tuple[int, int], window: int,
+                 expand: int = 4, mlp_ratio: int = 4, dtype=torch.bfloat16):
+        super().__init__()
+        self.conv = MaxViTMBConv(cin, dim, stride, expand, dtype)
+        self.attn_block = MaxViTPartitionAttention(dim, heads, grid, window, "block", mlp_ratio, dtype)
+        self.attn_grid = MaxViTPartitionAttention(dim, heads, grid, window, "grid", mlp_ratio, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x).permute(0, 2, 3, 1)
+        return self.attn_grid(self.attn_block(x)).permute(0, 3, 1, 2)
+
+
+class MaxViTHead(nn.Module):
+    """The mean over the grid, LayerNorm, a pre-logits dense layer with
+    tanh, the classifier (float32, as the zoo's heads)."""
+
+    def __init__(self, dim: int, num_classes: int):
+        super().__init__()
+        self.norm = LayerNorm(dim, _MAXVIT_LN_EPS)
+        self.pre_logits = Dense(dim, dim)
+        self.fc = Dense(dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(torch.tanh(self.pre_logits(self.norm(x.float().mean(dim=(2, 3))))))
+
+
+class MaxViT(nn.Module):
+    """MaxViT (Tu et al. 2022): a conv stem, then stages of blocks that each
+    chain MBConv, block attention and grid attention (heads of width
+    ``head_dim``, windows of ``min(window, grid)``), the first block of
+    every stage at stride 2, then the head. bfloat16 convolutions and
+    matmuls; BatchNorm, LayerNorm, the residual stream, the scores, bias
+    and softmax in float32. The relative indices are buffers kept out of
+    the state dict, which holds the learned tensors and the BatchNorm
+    statistics, in the order the forward uses them. A size the partitions
+    do not tile is refused at build time, and a forward at another size
+    than the one built raises."""
+
+    def __init__(self, num_classes: int = 1000, stem: int = 192, dims=(192, 384, 768, 1536), depths=(2, 6, 14, 2),
+                 head_dim: int = 32, window: int = 16, expand: int = 4, mlp_ratio: int = 4, dtype=torch.bfloat16,
+                 image_size=(512, 512)):
+        super().__init__()
+        self.image_size = tuple(image_size)
+        plan = maxvit_stages(self.image_size, len(depths), window)
+        self.stem = MaxViTStem(stem, dtype)
+        stages, cin = [], stem
+        for (grid, p), dim, depth in zip(plan, dims, depths):
+            stages.append(nn.Sequential(*(MaxViTBlock(cin if j == 0 else dim, dim, 2 if j == 0 else 1,
+                                                      dim // head_dim, grid, p, expand, mlp_ratio, dtype)
+                                          for j in range(depth))))
+            cin = dim
+        self.stages = nn.Sequential(*stages)
+        self.head = MaxViTHead(dims[-1], num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape[-2:]) != self.image_size:
+            raise ValueError(f"MaxViT was built for {self.image_size}; got an input of {tuple(x.shape[-2:])}")
+        return self.head(self.stages(self.stem(x)))
+
+
+def MaxViTXL512(image_size=(512, 512), **kw) -> MaxViT:
+    """MaxViT-XL at 512 (``maxvit_xlarge_tf_512``; 475.8M parameters,
+    535.2 G multiply-adds published)."""
+    return MaxViT(stem=192, dims=(192, 384, 768, 1536), depths=(2, 6, 14, 2), window=16, image_size=image_size,
+                  **kw)
+
+
+# ---------------------------------------------------------------------------
 # initialization
 # ---------------------------------------------------------------------------
 
@@ -955,9 +1165,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of a zoo model from ``generator``, by
     the Flax initializers' rules: LeCun-normal (truncated) kernels, zero
     biases, BatchNorm/LayerNorm scale 1 and bias 0, running statistics 0 and
-    1, ViT's class token 0 and position embedding normal(0.02), Swin's
-    relative position bias tables truncated normal(0.02) as the published
-    code draws them. The values differ from JAX's init of the same seed."""
+    1, ViT's class token 0 and position embedding normal(0.02), the window
+    attentions' relative position bias tables (Swin's, MaxViT's) truncated
+    normal(0.02) as Swin's published code draws them. The values differ
+    from JAX's init of the same seed."""
     for m in model.modules():
         if isinstance(m, (Conv, Dense)):
             std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
@@ -973,6 +1184,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, ViT):
             m.cls.zero_()
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
-        elif isinstance(m, SwinWindowAttention):
+        elif isinstance(m, WindowAttention):
             nn.init.trunc_normal_(m.relative_position_bias_table, 0.0, 0.02, -2.0, 2.0, generator=generator)
     return model

@@ -146,6 +146,7 @@ _ARCHITECTURES: dict[str, tuple[Any, Any]] = {
     "ViTTiny16": (nets.ViTTiny16, preprocess_minus1_1),
     # the port's own names, after the JAX package's
     "SwinL384": (nets.SwinL384, preprocess_torch),
+    "MaxViTXL512": (nets.MaxViTXL512, preprocess_minus1_1),  # the TF release's mean 0.5 and std 0.5
 }
 
 
